@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's certified-exact OT crossover once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each, any failure fatal (non-zero exit):
   env     the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
   build   the port's CUDA kernels, compiled from csrc/ with nvcc;
-  k1, k2  each kernel against its plain PyTorch version on the card, at the
-          main path's shapes (64 x 256^2), with the median time of each;
-  main    the main path, batched_tnet_exact_device, at 64 x 256^2 and at
-          16 x 784^2 (bench.py's shapes and seeds): every instance certified
-          by the host f64 certifier, both kernels launched, stage split,
-          certified instances/s;
+  k1, k2  the OT kernels against their plain PyTorch versions on the card,
+          at the OT path's shapes (64 x 256^2), with the median time of each;
+  main    the certified-exact OT crossover, batched_tnet_exact_device, at
+          64 x 256^2 and at 16 x 784^2 (bench.py's shapes and seeds): every
+          instance certified by the host f64 certifier, both kernels
+          launched, stage split, certified instances/s;
+  k3, k4  the PDHG and Halpern chunk kernels against their plain versions
+          at 512 x 2048, one 64-iteration chunk, with the median ms of each;
+  k5      the batched PDHG kernel against its plain version at 32 x 64 x
+          256 (2000 iterations, and 50 for a tight check), median ms;
+  main_lp_single_512x2048
+          pdhg_solve in both modes on the card, then the host primal simplex
+          from the warm start to an exact vertex, equal to HiGHS to 1e-8;
+  main_lp_fleet_32x64x256, main_lp_fleet_64x256x512
+          batched_lp_crossover(warm_engine="pdhg"): every instance optimal
+          and equal to HiGHS to 1e-8;
 then the card's nvidia-smi line, the kernels' summary and, last,
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.  It imports nothing of JAX.
@@ -33,6 +43,23 @@ REG, SINKHORN_ITERS, MAX_PIVOTS = 0.005, 1000, 20000
 K1_POT_ATOL = 1e-3      # |df|, |dg| in units of eps (the kernel runs on M/eps)
 K1_PLAN_RTOL = 1e-3     # max |dplan| / max plan
 K2_OBJ_RTOL = 1e-5      # objectives of the two optimal bases
+# PDHG kernels vs plain, both float32 with sums in another order.  The
+# adaptive step rule divides by curv = |dy.(A x_c - A x)|, a sum that
+# cancels: in float32 it carries ~1e-3 relative rounding, so one
+# 64-iteration chunk moves eta by up to ~2e-3 and the vectors by ~1e-3
+# (H100: the float32 plain version is 1e-3..2e-2 off its float64 run on
+# eta, the kernel 7e-4..1.2e-2).  Differences are relative to
+# 1 + max |plain value|.  Each kernel must also be about as accurate as the
+# float32 plain version: its distance to the plain version run in float64
+# at most F64_RATIO times the float32 plain version's, plus F64_FLOOR.
+PDHG_RTOL = 1e-2
+ETA_RTOL = 5e-2         # the returned step size itself (K3)
+F64_RATIO, F64_FLOOR = 4.0, 1e-5
+# K5 over 2000 iterations: the fleet's trajectories are chaotic in the last
+# bits, so only the step-weighted averages are compared, loosely.
+K5_LONG_AVG_RTOL = 5e-2
+LP_OBJ_RTOL = 1e-8      # exact vertex vs HiGHS
+DEVICE = "cuda"
 
 
 def emit(obj) -> None:
@@ -254,8 +281,302 @@ def phase_main(scx, B, S, D, seed, reps):
     require(n_cert == B, f"only {n_cert}/{B} certified")
     require(bool(opt.all()), "device did not reach optimality everywhere")
     require(obj_rel <= 1e-4, f"device objective off certificate: {obj_rel}")
-    require(all(v > 0 for v in counts.values()),
-            f"a kernel was not launched on the main path: {counts}")
+    require(counts["sinkhorn_fused"] > 0
+            and counts["transport_simplex_mega"] > 0,
+            f"a kernel was not launched on the OT path: {counts}")
+    return counts
+
+
+# ---------------------------------------------------------------- dense LP
+
+def lp_single(m, n, seed):
+    """A feasible, bounded equality LP (tests/test_pallas.py:156-161 with
+    bounds [0, 1]): b = A x*, x* ~ U(0.2, 0.8), c = A'y* + |noise| + 0.05."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n)) / np.sqrt(m)
+    b = A @ rng.uniform(0.2, 0.8, n)
+    c = A.T @ rng.standard_normal(m) + np.abs(rng.standard_normal(n)) + 0.05
+    return A, b, c, np.zeros(n), np.ones(n)
+
+
+def lp_fleet(B, m, n, seed):
+    """A fleet of equality LPs in [0, 1] (tests/test_pdhg_batched.py)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, m, n))
+    b = np.einsum("bmn,bn->bm", A, rng.uniform(0.1, 0.9, (B, n)))
+    c = rng.standard_normal((B, n))
+    return A, b, c, np.zeros((B, n)), np.ones((B, n))
+
+
+def highs_obj(A, b, c, l, u):
+    from scipy.optimize import linprog
+
+    ref = linprog(c, A_eq=A, b_eq=b, bounds=list(zip(l, u)), method="highs")
+    require(ref.status == 0, f"HiGHS failed: {ref.message}")
+    return float(ref.fun)
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| relative to 1 + max |b|."""
+    return (a - b).abs().max().item() / (1.0 + b.abs().max().item())
+
+
+def f64_check(fn, args, k, p, fields):
+    """Distances of the kernel's (k) and the float32 plain version's (p)
+    outputs to the plain version run in float64 on the same inputs, and
+    the fields where the kernel is less accurate than F64_RATIO times the
+    plain version's distance plus F64_FLOOR."""
+    import torch
+
+    q = fn(*[a.double() if torch.is_tensor(a) else a for a in args])
+    out, worse = {}, []
+    for i, nm in fields:
+        dk = rel_diff(k[i].double(), q[i])
+        dp = rel_diff(p[i].double(), q[i])
+        out[f"{nm}_kernel_vs_f64"], out[f"{nm}_plain_vs_f64"] = dk, dp
+        if not dk <= F64_RATIO * dp + F64_FLOOR:
+            worse.append(nm)
+    return out, worse
+
+
+def pdhg_start(m, n, seed):
+    """The single LP on the card and a PDHG start state."""
+    import torch
+
+    from smart_crossover_tpu_torch.solvers.pdhg import estimate_opnorm
+
+    A, b, c, l, u = to_cuda(*lp_single(m, n, seed))
+    x = torch.clamp(torch.zeros_like(c), l, u)
+    y = torch.zeros_like(b)
+    eq = torch.ones_like(b)
+    return A, b, c, l, u, eq, x, y, A @ x, estimate_opnorm(A)
+
+
+def phase_k3(m, n, seed):
+    import torch
+
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+        pdhg_chunk, pdhg_chunk_plain)
+
+    A, b, c, l, u, eq, x, y, Ax, opnorm = pdhg_start(m, n, seed)
+    z = torch.zeros_like
+    # a mid-run state: 256 plain iterations from the start
+    st = pdhg_chunk_plain(A, b, c, l, u, eq, x, y, Ax, z(x), z(y), 0.0,
+                          0.9 / opnorm, 1.0, 0, opnorm, chunk=256)
+    args = (A, b, c, l, u, eq, *st, 1.0, 256, opnorm)
+    k, ms, _ = sync_time(lambda: pdhg_chunk(*args), 20)
+    p, plain_ms, _ = sync_time(lambda: pdhg_chunk_plain(*args), 3)
+    again = pdhg_chunk(*args)
+    torch.cuda.synchronize()
+    names = ("x", "y", "Ax", "xs", "ys", "wsum", "eta")
+    err = {f"rel_d{nm}": rel_diff(a, q) for nm, a, q in zip(names, k, p)}
+    abs_err = max((a - q).abs().max().item() for a, q in zip(k[:3], p[:3]))
+    identical = all(torch.equal(a, q) for a, q in zip(k, again))
+    acc, worse = f64_check(pdhg_chunk_plain, args, k, p,
+                           ((0, "x"), (1, "y")))
+    emit({"phase": "k3_pdhg_chunk", "shape": [m, n], "chunk": 64,
+          "k": 256, **err, **acc,
+          "max_abs_dx_dy_dAx": abs_err, "repeat_bit_identical": identical,
+          "eta_kernel": k[6].item(), "eta_plain": p[6].item(),
+          "ms": ms, "plain_ms": plain_ms,
+          "tolerance": {"rel": PDHG_RTOL, "eta_rel": ETA_RTOL,
+                        "f64_ratio": F64_RATIO}})
+    require(all(np.isfinite(list(err.values()))), "k3 produced non-finite")
+    require(max(v for nm, v in err.items() if nm != "rel_deta") <= PDHG_RTOL
+            and err["rel_deta"] <= ETA_RTOL, f"k3 differs from plain: {err}")
+    require(not worse, f"k3 less accurate than plain on {worse}: {acc}")
+    require(identical, "k3 repeat launch not bit-identical")
+    return {"name": "pdhg_chunk", "route": "cuda",
+            "source": "smart_crossover_tpu_torch/csrc/pdhg_chunk.cu",
+            "replaces": "smart_crossover_tpu/ops/pdhg_pallas.py:31",
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_k4(m, n, seed):
+    import torch
+
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+        halpern_chunk, halpern_chunk_plain)
+
+    A, b, c, l, u, eq, x, y, Ax, opnorm = pdhg_start(m, n, seed)
+    step = 0.99 / opnorm
+    # anchors at the start, the iterate 128 plain iterations on
+    x1, y1, Ax1, _ = halpern_chunk_plain(A, b, c, l, u, eq, x, y, Ax, x, y,
+                                         Ax, 1.0, 0.0, step, chunk=128)
+    args = (A, b, c, l, u, eq, x1, y1, Ax1, x, y, Ax, 1.0, 128.0, step)
+    k, ms, _ = sync_time(lambda: halpern_chunk(*args), 20)
+    p, plain_ms, _ = sync_time(lambda: halpern_chunk_plain(*args), 3)
+    again = halpern_chunk(*args)
+    torch.cuda.synchronize()
+    err = {f"rel_d{nm}": rel_diff(a, q)
+           for nm, a, q in zip(("x", "y", "Ax"), k, p)}
+    abs_err = max((a - q).abs().max().item() for a, q in zip(k[:3], p[:3]))
+    identical = all(torch.equal(a, q) for a, q in zip(k, again))
+    acc, worse = f64_check(halpern_chunk_plain, args, k, p,
+                           ((0, "x"), (1, "y")))
+    emit({"phase": "k4_halpern_chunk", "shape": [m, n], "chunk": 64,
+          "k_in": 128, "k_out_kernel": k[3].item(),
+          "k_out_plain": float(p[3]),
+          **err, **acc, "max_abs_dx_dy_dAx": abs_err,
+          "repeat_bit_identical": identical, "ms": ms,
+          "plain_ms": plain_ms,
+          "tolerance": {"rel": PDHG_RTOL, "f64_ratio": F64_RATIO}})
+    require(all(np.isfinite(list(err.values()))), "k4 produced non-finite")
+    require(max(err.values()) <= PDHG_RTOL,
+            f"k4 differs from plain: {err}")
+    require(not worse, f"k4 less accurate than plain on {worse}: {acc}")
+    require(k[3].item() == float(p[3]) == 192.0, "k4 returned a wrong k")
+    require(identical, "k4 repeat launch not bit-identical")
+    return {"name": "halpern_chunk", "route": "cuda",
+            "source": "smart_crossover_tpu_torch/csrc/pdhg_chunk.cu",
+            "replaces": "smart_crossover_tpu/ops/pdhg_pallas.py:183",
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_k5(B, m, n, seed, iters):
+    import torch
+
+    from smart_crossover_tpu_torch.solvers.pdhg_batched import (
+        _opnorms, pdhg_batched_cuda, pdhg_fixed_batched_plain)
+
+    A, b, c, l, u = to_cuda(*lp_fleet(B, m, n, seed))
+    opn = _opnorms(A)
+    x0 = torch.clamp(torch.zeros_like(c), l, u)
+    y0 = torch.zeros_like(b)
+    names = ("x", "y", "x_avg", "y_avg")
+    short_k = pdhg_batched_cuda(A, b, c, l, u, opn, 50)
+    short_p = pdhg_fixed_batched_plain(A, b, c, l, u, opn, x0, y0, 50)
+    short = {f"rel_d{nm}_50": rel_diff(a, q)
+             for nm, a, q in zip(names, short_k, short_p)}
+    acc, worse = f64_check(pdhg_fixed_batched_plain,
+                           (A, b, c, l, u, opn, x0, y0, 50), short_k,
+                           short_p, ((0, "x_50"), (1, "y_50")))
+    k, ms, _ = sync_time(lambda: pdhg_batched_cuda(A, b, c, l, u, opn,
+                                                   iters), 5)
+    p, plain_ms, _ = sync_time(lambda: pdhg_fixed_batched_plain(
+        A, b, c, l, u, opn, x0, y0, iters), 2)
+    again = pdhg_batched_cuda(A, b, c, l, u, opn, iters)
+    torch.cuda.synchronize()
+    long = {f"rel_d{nm}_{iters}": rel_diff(a, q)
+            for nm, a, q in zip(names, k, p)}
+    abs_err = max((a - q).abs().max().item()
+                  for a, q in zip(short_k, short_p))
+    identical = all(torch.equal(a, q) for a, q in zip(k, again))
+    emit({"phase": "k5_pdhg_batched", "shape": [B, m, n], "iters": iters,
+          **short, **long, **acc, "max_abs_err_50": abs_err,
+          "repeat_bit_identical": identical, "ms": ms, "plain_ms": plain_ms,
+          "tolerance": {"rel_50": PDHG_RTOL, "f64_ratio": F64_RATIO,
+                        f"rel_avg_{iters}": K5_LONG_AVG_RTOL}})
+    vals = list(short.values()) + list(long.values())
+    require(all(np.isfinite(vals)), "k5 produced non-finite")
+    require(max(short.values()) <= PDHG_RTOL,
+            f"k5 differs from plain at 50 iterations: {short}")
+    require(not worse, f"k5 less accurate than plain on {worse}: {acc}")
+    require(long[f"rel_dx_avg_{iters}"] <= K5_LONG_AVG_RTOL
+            and long[f"rel_dy_avg_{iters}"] <= K5_LONG_AVG_RTOL,
+            f"k5 averages differ from plain at {iters}: {long}")
+    require(identical, "k5 repeat launch not bit-identical")
+    return {"name": "pdhg_batched", "route": "cuda",
+            "source": "smart_crossover_tpu_torch/csrc/pdhg_batched.cu",
+            "replaces": "smart_crossover_tpu/solvers/pdhg_batched.py:100",
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_lp_single(scx, m, n, seed):
+    """pdhg_solve on the card in both modes, each crossed over on the host
+    to an exact vertex."""
+    import torch
+
+    from smart_crossover_tpu_torch.solvers.simplex import primal_simplex
+    from smart_crossover_tpu_torch.solvers.solving import (
+        _crossover_statuses)
+
+    A, b, c, l, u = lp_single(m, n, seed)
+    t0 = time.perf_counter()
+    ref = highs_obj(A, b, c, l, u)
+    highs_s = time.perf_counter() - t0
+    counts = {}
+    def cross(x):
+        t0 = time.perf_counter()
+        vx = primal_simplex(A, b, c, l, u,
+                            vstatus=_crossover_statuses(x, l, u))
+        return vx, time.perf_counter() - t0
+
+    for mode, kname in (("adaptive", "pdhg_chunk"),
+                        ("halpern", "halpern_chunk")):
+        # the host polish's share: the same solve without it
+        raw = scx.pdhg_solve(A, b, c, l, u, tol=1e-4, max_iters=20000,
+                             mode=mode, polish=False, device=DEVICE)
+        vraw, raw_cross_s = cross(raw.x)
+        torch.cuda.synchronize()
+        scx.reset_kernel_launch_counts()
+        # the f64 LP goes in; the iterations run in float32 on the card
+        res = scx.pdhg_solve(A, b, c, l, u, tol=1e-4, max_iters=20000,
+                             mode=mode, device=DEVICE)
+        counts[mode] = scx.kernel_launch_counts()
+        vx, cross_s = cross(res.x)
+        rel = abs(vx.obj_val - ref) / max(1.0, abs(ref))
+        emit({"phase": f"main_lp_single_{m}x{n}", "mode": mode, "seed": seed,
+              "pdhg_status": res.status, "pdhg_iters": res.iter_count,
+              "primal_residual": res.primal_residual,
+              "dual_residual": res.dual_residual, "gap": res.gap,
+              "pdhg_obj": res.obj_val,
+              "pdhg_ms": res.runtime.total_seconds() * 1e3,
+              "crossover_status": vx.status,
+              "crossover_pivots": vx.iter_count, "crossover_s": cross_s,
+              "vertex_obj": vx.obj_val, "highs_obj": ref, "highs_s": highs_s,
+              "vertex_rel_to_highs": rel,
+              "no_polish": {"pdhg_ms": raw.runtime.total_seconds() * 1e3,
+                            "pdhg_iters": raw.iter_count,
+                            "max_kkt": max(raw.primal_residual,
+                                           raw.dual_residual, raw.gap),
+                            "crossover_pivots": vraw.iter_count,
+                            "crossover_s": raw_cross_s,
+                            "vertex_obj": vraw.obj_val},
+              "launches": counts[mode]})
+        require(counts[mode][kname] > 0,
+                f"{kname} was not launched by pdhg_solve({mode})")
+        require(bool(np.isfinite(res.x).all() and np.isfinite(res.y).all()),
+                f"pdhg_solve({mode}) warm start not finite")
+        require(vx.status == "OPTIMAL", f"crossover ({mode}): {vx.status}")
+        require(rel <= LP_OBJ_RTOL, f"vertex ({mode}) off HiGHS: {rel}")
+    return counts
+
+
+def phase_lp_fleet(scx, B, m, n, seed, reps):
+    import torch
+
+    A, b, c, l, u = lp_fleet(B, m, n, seed)
+    torch.cuda.synchronize()
+    scx.reset_kernel_launch_counts()
+    # the f64 fleet goes in: float32 warm start on the card, f64 crossover
+    out = scx.batched_lp_crossover(A, b, c, l, u, warm_engine="pdhg",
+                                   pdhg_iters=4000, device=DEVICE)
+    counts = scx.kernel_launch_counts()
+    dev = to_cuda(A, b, c, l, u)
+    _, dev_ms, all_ms = sync_time(lambda: scx.pdhg_dense_batched(
+        *dev, iters=4000), reps)
+    t0 = time.perf_counter()
+    ref = np.array([highs_obj(A[i], b[i], c[i], l[i], u[i])
+                    for i in range(B)])
+    highs_s = time.perf_counter() - t0
+    rel = np.abs(out["obj"] - ref) / np.maximum(1.0, np.abs(ref))
+    total_s = out["warm_seconds"] + out["crossover_seconds"]
+    emit({"phase": f"main_lp_fleet_{B}x{m}x{n}", "seed": seed,
+          "pdhg_iters": 4000, "n_optimal": int(out["optimal"].sum()),
+          "batch": B, "max_rel_to_highs": float(rel.max()),
+          "warm_seconds": out["warm_seconds"],
+          "pdhg_device_ms_median": dev_ms, "pdhg_device_ms": all_ms,
+          "host_crossover_s": out["crossover_seconds"],
+          "median_pivots": float(np.median(out["pivots"])),
+          "max_pivots": int(out["pivots"].max()),
+          "exact_vertices_per_s": B / total_s, "highs_s": highs_s,
+          "launches": counts})
+    require(bool(out["optimal"].all()),
+            f"only {int(out['optimal'].sum())}/{B} optimal")
+    require(bool(rel.max() <= LP_OBJ_RTOL), f"fleet off HiGHS: {rel.max()}")
+    require(bool(np.isfinite(out["x_bar"]).all()), "fleet warm start not finite")
+    require(counts["pdhg_batched"] > 0, f"K5 not launched: {counts}")
     return counts
 
 
@@ -282,6 +603,16 @@ def main() -> int:
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_784"] = counts7[k["name"]]
+
+    kernels += [phase_k3(512, 2048, seed=3), phase_k4(512, 2048, seed=3),
+                phase_k5(32, 64, 256, seed=5, iters=2000)]
+    single = phase_lp_single(scx, 512, 2048, seed=7)
+    fleet = phase_lp_fleet(scx, 32, 64, 256, seed=5, reps=5)
+    fleet_big = phase_lp_fleet(scx, 64, 256, 512, seed=6, reps=3)
+    kernels[2]["launches"] = single["adaptive"]["pdhg_chunk"]
+    kernels[3]["launches"] = single["halpern"]["halpern_chunk"]
+    kernels[4]["launches"] = fleet["pdhg_batched"]
+    kernels[4]["launches_64x256x512"] = fleet_big["pdhg_batched"]
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.")

@@ -1,10 +1,11 @@
-"""PyTorch / CUDA port of smart_crossover_tpu: the certified-exact batched
-OT crossover on an NVIDIA Hopper card.
+"""PyTorch / CUDA port of smart_crossover_tpu on an NVIDIA Hopper card: the
+certified-exact batched OT crossover, and the dense-LP first-order path
+(PDHG warm start, then an exact host vertex).
 
 The layout mirrors ``smart_crossover_tpu/``; each module names its JAX
-counterpart.  Plain tensor code is PyTorch; the two TPU kernels on this
-path are hand-written CUDA (``csrc/``), built with nvcc at first use.  The
-package imports torch, numpy and scipy, never jax.
+counterpart.  Plain tensor code is PyTorch; every TPU kernel of the JAX
+package is hand-written CUDA here (``csrc/``), built with nvcc at first
+use.  The package imports torch, numpy and scipy, never jax.
 """
 from smart_crossover_tpu_torch._build import (
     kernel_launch_counts,
@@ -24,15 +25,22 @@ from smart_crossover_tpu_torch.parallel.batched import (
     batched_tnet_exact_device,
     tnet_single,
 )
+from smart_crossover_tpu_torch.parallel.batched_lp import batched_lp_crossover
+from smart_crossover_tpu_torch.solvers.pdhg import PDHGResult, pdhg_solve
+from smart_crossover_tpu_torch.solvers.pdhg_batched import pdhg_dense_batched
 
 __all__ = [
     "OTCertificate",
+    "PDHGResult",
+    "batched_lp_crossover",
     "batched_tnet",
     "batched_tnet_exact_device",
     "batched_transport_simplex_mega",
     "certify_ot_basis",
     "certify_ot_basis_batch",
     "kernel_launch_counts",
+    "pdhg_dense_batched",
+    "pdhg_solve",
     "reset_kernel_launch_counts",
     "sinkhorn_plan_fused",
     "tnet_single",

@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels.
 
-Both kernels live in ``csrc/*.cu`` behind a plain C interface.  At first
+The kernels live in ``csrc/*.cu`` behind a plain C interface.  At first
 use they are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
 library under ``build/smart_crossover_tpu_torch/`` beside the package,
 named by a hash of the sources and flags so that a stale library is never
@@ -22,13 +22,15 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("sinkhorn.cu", "transport_simplex_mega.cu")
+SOURCES = ("sinkhorn.cu", "transport_simplex_mega.cu", "pdhg_chunk.cu",
+           "pdhg_batched.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "smart_crossover_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"sinkhorn_fused": 0, "transport_simplex_mega": 0}
+LAUNCHES = {"sinkhorn_fused": 0, "transport_simplex_mega": 0,
+            "pdhg_chunk": 0, "halpern_chunk": 0, "pdhg_batched": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +42,14 @@ _SIGNATURES = {
     # N_work, mask_out, parent_out, Xv_out, w_out, pot_out, stats,
     # B, S, D, tol, max_pivots, refresh, stream
     "scx_transport_simplex_mega": [_P] * 14 + [_I, _I, _I, _F, _I, _I, _P],
+    # A, b, c, l, u, eq, xbuf, ybuf, axbuf, xs, ys, scal_in, scal_out, part,
+    # x_out, y_out, ax_out, m, n, chunk, stream
+    "scx_pdhg_chunk": [_P] * 17 + [_I, _I, _I, _P],
+    # A, b, c, l, u, eq, x, y, ax, xa, ya, axa, xt, scal_in, scal_out,
+    # m, n, chunk, stream
+    "scx_halpern_chunk": [_P] * 15 + [_I, _I, _I, _P],
+    # A, b, c, l, u, opnorms, x, y, x_avg, y_avg, B, m, n, iters, stream
+    "scx_pdhg_batched": [_P] * 10 + [_I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -66,11 +76,25 @@ def library_path() -> Path:
     return BUILD_DIR / f"libscx_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once; raise with the output of the first that
+    fails, else return all their output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{o}")
+    return "".join(outs)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if no library for the current sources exists;
-    return its path.  The library is written under a temporary name and
-    renamed, so a concurrent or interrupted build never leaves a partial
-    file under the final name."""
+    return its path.  Each source compiles in its own nvcc process, all at
+    once, then one link.  The library is written under a temporary name
+    and renamed, so a concurrent or interrupted build never leaves a
+    partial file under the final name."""
     global build_seconds
     out = library_path()
     if out.exists():
@@ -78,23 +102,16 @@ def build(verbose: bool = False) -> Path:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *[str(CSRC / n) for n in SOURCES]]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, n + ".o") for n in SOURCES]
+        ptxas = ["-Xptxas", "-v"] if verbose else []
+        log = _run_all([nvcc, *NVCC_FLAGS, *ptxas, "-c", str(CSRC / n),
+                        "-o", o] for n, o in zip(SOURCES, objs))
+        tmp = os.path.join(tmpdir, "lib.so")
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         if verbose:
-            print(res.stdout + res.stderr)
+            print(log)
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
     build_seconds = time.perf_counter() - t0
     return out
 

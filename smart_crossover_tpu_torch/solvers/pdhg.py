@@ -1,0 +1,499 @@
+"""Restarted PDHG (PDLP-style) first-order LP solver on a dense A.
+
+Port of ``smart_crossover_tpu/solvers/pdhg.py``: ``PDHGResult``,
+``estimate_opnorm``, ``_ruiz_equilibrate`` (dense branch, host numpy),
+``_pdhg_core`` (adaptive steps + averaging restarts), ``_pdhg_core_halpern``
+(restarted reflected Halpern), ``_active_set_polish`` (host scipy) and
+``pdhg_solve`` for a dense A.  Solves
+
+    min c'x  s.t.  A_eq x = b_eq,  A_le x <= b_le,  l <= x <= u.
+
+The JAX cores are ``lax.while_loop``s under ``jit``; here the outer loop is
+Python: one chunk of ``check_every`` iterations per step, run by the
+kernel wrappers of ``ops/pdhg_chunk.py`` (the CUDA kernels on a CUDA
+tensor, their plain versions on the CPU), then the restart test, the KKT
+scores and the primal-weight update as tensor ops, and one host read per
+chunk for the loop condition.  Not ported yet: the BCOO and host-scipy
+routes for a sparse A (ROADMAP 1.11) and ``pdhg_general_lp``, which needs
+the ``GeneralLP`` model (ROADMAP 1.14).
+"""
+from __future__ import annotations
+
+import datetime
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import scipy.sparse as ssp
+import torch
+
+from smart_crossover_tpu_torch.config import device_float, resolve_device
+from smart_crossover_tpu_torch.ops.pdhg_chunk import halpern_chunk, pdhg_chunk
+
+
+@dataclass
+class PDHGResult:
+    x: np.ndarray
+    y: np.ndarray
+    obj_val: float
+    iter_count: int
+    status: str
+    runtime: datetime.timedelta
+    primal_residual: float
+    dual_residual: float
+    gap: float
+
+
+def estimate_opnorm(A: torch.Tensor, iters: int = 50, seed: int = 0):
+    """Power iteration for ||A||_2 from a seeded Gaussian start (a
+    ``torch.Generator`` on the CPU: other numbers than ``jax.random``)."""
+    gen = torch.Generator().manual_seed(seed)
+    v = torch.randn(A.shape[1], generator=gen, dtype=torch.float64)
+    v = v.to(device=A.device, dtype=A.dtype)
+    v = v / torch.linalg.norm(v)
+    for _ in range(iters):
+        w = A.T @ (A @ v)
+        v = w / (torch.linalg.norm(w) + 1e-30)
+    return torch.sqrt(torch.linalg.norm(A.T @ (A @ v)))
+
+
+def _kkt_score(A, b, c, l, u, is_eq, bscale, cscale, x, y):
+    """Normalised (primal residual, dual residual, gap) of (x, y)."""
+    r = A @ x - b
+    pviol = torch.where(is_eq, r, torch.clamp(r, min=0.0))
+    pres = torch.linalg.norm(pviol) / bscale
+    rc = c - A.T @ y
+    fin_l = torch.isfinite(l)
+    fin_u = torch.isfinite(u)
+    lo_ok = fin_l & (x <= l + 1e-12)
+    up_ok = fin_u & (x >= u - 1e-12)
+    dviol = torch.where(lo_ok, torch.clamp(rc, max=0.0),
+                        torch.where(up_ok, torch.clamp(rc, min=0.0), rc))
+    dres = torch.linalg.norm(dviol) / cscale
+    ly = torch.where(fin_l, l, 0.0)
+    uy = torch.where(fin_u, u, 0.0)
+    rc_pos = torch.clamp(rc, min=0.0) * fin_l
+    rc_neg = torch.clamp(rc, max=0.0) * fin_u
+    dual_obj = b @ y + ly @ rc_pos + uy @ rc_neg
+    pobj = c @ x
+    gap = torch.abs(pobj - dual_obj) / (1.0 + torch.abs(pobj)
+                                        + torch.abs(dual_obj))
+    return pres, dres, gap
+
+
+def _restart_rule(score, score_lr, score_prev, cnt, it, check_every,
+                  restart_period, done):
+    """PDLP restart criteria: sufficient or necessary decay of the score,
+    or an artificial restart once the window reaches
+    max(restart_period, 0.36 * elapsed iterations)."""
+    sufficient = score <= 0.2 * score_lr
+    necessary = (score <= 0.8 * score_lr) & (score > score_prev)
+    artificial = cnt >= max(restart_period, int(0.36 * (it + check_every)))
+    return sufficient | necessary | artificial | done
+
+
+def _omega_update(restart, cand_x, cand_y, x_lr, y_lr, omega):
+    """Primal weight toward the closed window's dual/primal movement."""
+    dx_move = torch.linalg.norm(cand_x - x_lr)
+    dy_move = torch.linalg.norm(cand_y - y_lr)
+    valid = restart & (dx_move > 1e-12) & (dy_move > 1e-12)
+    log_ratio = torch.log(torch.where(valid, dy_move / dx_move, 1.0))
+    omega = torch.where(valid,
+                        torch.exp(0.5 * log_ratio + 0.5 * torch.log(omega)),
+                        omega)
+    return torch.clamp(omega, 1e-4, 1e4)
+
+
+def _pdhg_core(A, b, c, l, u, is_eq, opnorm, x0, y0, max_iters: int,
+               check_every: int, restart_period: int, tol: float):
+    """Core loop with PDLP-style adaptive restarts and primal weight (see
+    the JAX ``_pdhg_core``).  The chunk gets the GLOBAL iteration count as
+    its schedule index.  Returns (x, y, iters, converged)."""
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    inf = torch.full((), float("inf"), dtype=A.dtype, device=A.device)
+    bscale = 1.0 + torch.linalg.norm(b)
+    cscale = 1.0 + torch.linalg.norm(c)
+    eqf = is_eq.to(A.dtype)
+    x, y = x0, y0
+    Ax = A @ x0
+    xs, ys, wsum = torch.zeros_like(x0), torch.zeros_like(y0), zero
+    cnt = torch.zeros((), dtype=torch.int64, device=A.device)
+    it = 0
+    x_lr, y_lr = x0, y0
+    score_lr = score_prev = best_score = inf
+    best_x, best_y = x0, y0
+    omega = torch.ones((), dtype=A.dtype, device=A.device)
+    eta = 0.9 / opnorm
+    done = torch.zeros((), dtype=torch.bool, device=A.device)
+    while it < max_iters:
+        x, y, Ax, xs, ys, wsum, eta = pdhg_chunk(
+            A, b, c, l, u, eqf, x, y, Ax, xs, ys, wsum, eta, omega, it,
+            opnorm, chunk=check_every)
+        cnt = cnt + check_every
+        pos = wsum > 0
+        safe_w = torch.where(pos, wsum, 1.0)
+        x_avg = torch.where(pos, xs / safe_w, x)
+        y_avg = torch.where(pos, ys / safe_w, y)
+        pres_c, dres_c, gap_c = _kkt_score(A, b, c, l, u, is_eq, bscale,
+                                           cscale, x, y)
+        pres_a, dres_a, gap_a = _kkt_score(A, b, c, l, u, is_eq, bscale,
+                                           cscale, x_avg, y_avg)
+        score_c = pres_c + dres_c + gap_c
+        score_a = pres_a + dres_a + gap_a
+        use_avg = score_a < score_c
+        cand_x = torch.where(use_avg, x_avg, x)
+        cand_y = torch.where(use_avg, y_avg, y)
+        score = torch.minimum(score_a, score_c)
+        pres = torch.where(use_avg, pres_a, pres_c)
+        dres = torch.where(use_avg, dres_a, dres_c)
+        gap = torch.where(use_avg, gap_a, gap_c)
+        improved = score < best_score
+        best_x = torch.where(improved, cand_x, best_x)
+        best_y = torch.where(improved, cand_y, best_y)
+        best_score = torch.minimum(score, best_score)
+        done = (pres < tol) & (dres < tol) & (gap < tol)
+        restart = _restart_rule(score, score_lr, score_prev, cnt, it,
+                                check_every, restart_period, done)
+        omega = _omega_update(restart, cand_x, cand_y, x_lr, y_lr, omega)
+        x = torch.where(restart, cand_x, x)
+        y = torch.where(restart, cand_y, y)
+        Ax = torch.where(restart, A @ x, Ax)
+        xs = torch.where(restart, 0.0, xs)
+        ys = torch.where(restart, 0.0, ys)
+        wsum = torch.where(restart, 0.0, wsum)
+        cnt = torch.where(restart, 0, cnt)
+        x_lr = torch.where(restart, x, x_lr)
+        y_lr = torch.where(restart, y, y_lr)
+        score_lr = torch.where(restart, score, score_lr)
+        score_prev = score
+        it += check_every
+        if bool(done):
+            break
+    # converged -> the converging restart point; iteration-limited -> the
+    # best iterate seen
+    x = torch.where(done, x, best_x)
+    y = torch.where(done, y, best_y)
+    return x, y, it, bool(done)
+
+
+def _pdhg_core_halpern(A, b, c, l, u, is_eq, opnorm, x0, y0,
+                       max_iters: int, check_every: int,
+                       restart_period: int, tol: float):
+    """Restarted reflected-Halpern PDHG (r2HPDHG; see the JAX
+    ``_pdhg_core_halpern``).  The chunk gets the iterations since the last
+    restart (cnt) as its Halpern index; the anchors move only at a
+    restart.  Returns (x, y, iters, converged)."""
+    inf = torch.full((), float("inf"), dtype=A.dtype, device=A.device)
+    bscale = 1.0 + torch.linalg.norm(b)
+    cscale = 1.0 + torch.linalg.norm(c)
+    eqf = is_eq.to(A.dtype)
+    step = 0.99 / opnorm
+    Ax0 = A @ x0
+    x, y, Ax = x0, y0, Ax0
+    xa, ya, Axa = x0, y0, Ax0
+    cnt = torch.zeros((), dtype=torch.int64, device=A.device)
+    it = 0
+    x_lr, y_lr = x0, y0
+    score_lr = score_prev = best_score = inf
+    best_x, best_y = x0, y0
+    omega = torch.ones((), dtype=A.dtype, device=A.device)
+    done = torch.zeros((), dtype=torch.bool, device=A.device)
+    while it < max_iters:
+        x, y, Ax, _ = halpern_chunk(A, b, c, l, u, eqf, x, y, Ax, xa, ya, Axa,
+                                    omega, cnt.to(A.dtype), step,
+                                    chunk=check_every)
+        cnt = cnt + check_every
+        # the restart/output candidate is T(z), the PDHG image of the
+        # Halpern iterate
+        tau = step / omega
+        sigma = step * omega
+        x_c = torch.minimum(torch.maximum(x - tau * (c - A.T @ y), l), u)
+        Ax_c = A @ x_c
+        y_t = y + sigma * (b - (2.0 * Ax_c - Ax))
+        y_c = torch.where(is_eq, y_t, torch.clamp(y_t, max=0.0))
+        pres, dres, gap = _kkt_score(A, b, c, l, u, is_eq, bscale, cscale,
+                                     x_c, y_c)
+        kkt = pres + dres + gap
+        improved = kkt < best_score
+        best_x = torch.where(improved, x_c, best_x)
+        best_y = torch.where(improved, y_c, best_y)
+        best_score = torch.minimum(kkt, best_score)
+        done = (pres < tol) & (dres < tol) & (gap < tol)
+        # r2HPDHG restarts on the fixed-point residual ||z - T(z)||_omega
+        score = torch.sqrt(omega * torch.sum((x_c - x) ** 2)
+                           + torch.sum((y_c - y) ** 2) / omega)
+        restart = _restart_rule(score, score_lr, score_prev, cnt, it,
+                                check_every, restart_period, done)
+        omega = _omega_update(restart, x_c, y_c, x_lr, y_lr, omega)
+        # restart: jump to T(z) and re-anchor there; cnt (the Halpern
+        # index) starts again at 0
+        x = torch.where(restart, x_c, x)
+        y = torch.where(restart, y_c, y)
+        Ax = torch.where(restart, Ax_c, Ax)
+        xa = torch.where(restart, x_c, xa)
+        ya = torch.where(restart, y_c, ya)
+        Axa = torch.where(restart, Ax_c, Axa)
+        cnt = torch.where(restart, 0, cnt)
+        x_lr = torch.where(restart, x_c, x_lr)
+        y_lr = torch.where(restart, y_c, y_lr)
+        score_lr = torch.where(restart, score, score_lr)
+        score_prev = score
+        it += check_every
+        if bool(done):
+            break
+    x = torch.where(done, x, best_x)
+    y = torch.where(done, y, best_y)
+    return x, y, it, bool(done)
+
+
+def _ruiz_equilibrate(A, iters: int = 10):
+    """Ruiz diagonal equilibration of a dense A (host f64): returns (R, C)
+    with R A C well scaled."""
+    An = np.abs(np.asarray(A, dtype=np.float64))
+    m, n = An.shape
+    R = np.ones(m)
+    C = np.ones(n)
+    for _ in range(iters):
+        rmax = (An * R[:, None] * C[None, :]).max(axis=1)
+        R /= np.where(rmax > 0, np.sqrt(rmax), 1.0)
+        cmax = (An * R[:, None] * C[None, :]).max(axis=0)
+        C /= np.where(cmax > 0, np.sqrt(cmax), 1.0)
+    return R, C
+
+
+def _active_set_polish(A_sp, b, c, l, u, eq, x, y):
+    """Active-set Newton polish (the analog of PDLP's feasibility
+    polishing): a stalled PDHG tail leaves tiny KKT violations whose decay
+    rate is set by the LP's sharpness constant — but by then the active set
+    is usually IDENTIFIED, so one least-squares solve per side removes them:
+
+    * primal: snap at-bound variables exactly to their bounds, then add the
+      minimum-norm interior correction restoring A x = b on active rows;
+    * dual: re-solve y from the interior (basic-ish) columns' stationarity
+      c_I = A_Iᵀ y in least squares, zeroing inactive '<='-row duals.
+
+    Both are matrix-free LSMR solves on host f64.  The caller accepts the
+    polished pair only if the verified KKT score improves, so a wrong
+    active-set guess degrades nothing."""
+    import scipy.sparse.linalg as spla
+
+    from scipy.optimize import lsq_linear
+
+    m, n = A_sp.shape
+    scale = 1e-6 * (1.0 + np.abs(x).max(initial=0.0))
+    at_l = np.isfinite(l) & (x - l <= scale)
+    at_u = np.isfinite(u) & (u - x <= scale) & ~at_l
+    interior = ~at_l & ~at_u
+    # '<=' rows with (numerically) zero dual are inactive: slack stays basic
+    yscale = 1e-8 * (1.0 + np.abs(y).max(initial=0.0))
+    active_row = eq | (y < -yscale)
+    A_act = A_sp[active_row].tocsc()
+    b_act = b[active_row]
+    cscale = 1.0 + np.abs(c).max(initial=0.0)
+    bscale = 1.0 + np.abs(b).max(initial=0.0)
+
+    def primal_fit(at_l_t, at_u_t, interior_t):
+        """Snap bound variables and redistribute the active-row residual
+        over the interior columns WITHIN their bounds (bounded LSQ — an
+        unbounded correction can be infeasible exactly when the tentative
+        eviction is wrong).  Returns (x_t, residual_norm)."""
+        x_t = x.copy()
+        x_t[at_l_t] = l[at_l_t]
+        x_t[at_u_t] = u[at_u_t]
+        idx = np.where(interior_t)[0]
+        if idx.size and active_row.any():
+            r = b_act - A_act @ x_t
+            fit = lsq_linear(A_act[:, idx], r,
+                             bounds=(l[idx] - x_t[idx], u[idx] - x_t[idx]),
+                             method="trf", lsq_solver="lsmr",
+                             lsmr_tol=1e-14, max_iter=30)
+            x_t[idx] += fit.x
+        return x_t, float(np.linalg.norm(b_act - A_act @ x_t))
+
+    # dual side with active-set refinement: an over-included interior column
+    # (one the optimum actually parks at a bound, but the FOM left slightly
+    # inside) makes c_I = A_Iᵀ y inconsistent and smears ~equal residual
+    # over every column.  Evict the worst violator to the bound its
+    # reduced-cost sign implies — but commit only when the bounded primal
+    # redistribution stays feasible (a wrong eviction shows up there).
+    y_act = y[active_row].astype(np.float64)
+    banned = np.zeros(n, dtype=bool)
+    for _ in range(8):
+        idx_i = np.where(interior)[0]
+        if idx_i.size == 0:
+            break
+        A_ai = A_act[:, idx_i]
+        y_act = spla.lsmr(A_ai.T, c[idx_i], atol=1e-14, btol=1e-14,
+                          maxiter=500, x0=y_act)[0]
+        rc_i = c[idx_i] - A_ai.T @ y_act
+        evict = -1
+        for j_rel in np.argsort(-np.abs(rc_i))[:4]:
+            if abs(rc_i[j_rel]) <= 1e-12 * cscale:
+                break
+            j = idx_i[j_rel]
+            if banned[j]:
+                continue
+            if rc_i[j_rel] > 0 and np.isfinite(l[j]):
+                evict, to_lower = j, True
+                break
+            if rc_i[j_rel] < 0 and np.isfinite(u[j]):
+                evict, to_lower = j, False
+                break
+        if evict < 0:
+            break
+        at_l_t, at_u_t = at_l.copy(), at_u.copy()
+        (at_l_t if to_lower else at_u_t)[evict] = True
+        interior_t = interior.copy()
+        interior_t[evict] = False
+        x_t, resid = primal_fit(at_l_t, at_u_t, interior_t)
+        if resid <= 1e-9 * bscale:
+            at_l, at_u, interior = at_l_t, at_u_t, interior_t
+        else:
+            banned[evict] = True   # infeasible eviction: keep it interior
+
+    y_p = np.zeros(m)
+    y_p[active_row] = y_act
+    # keep '<=' duals sign-feasible
+    y_p = np.where(eq, y_p, np.minimum(y_p, 0.0))
+    x_p, _ = primal_fit(at_l, at_u, interior)
+    return x_p, y_p
+
+
+def _host_kkt(A_host, b_h, c_h, ln, un, eq, xv, yv):
+    """(primal residual, dual residual, gap) on the host in f64."""
+    r = A_host @ xv - b_h
+    pres = float(np.linalg.norm(np.where(eq, r, np.maximum(r, 0.0)))
+                 / (1.0 + np.linalg.norm(b_h)))
+    rc = c_h - A_host.T @ yv
+    lo_ok = np.isfinite(ln) & (xv <= ln + 1e-10)
+    up_ok = np.isfinite(un) & (xv >= un - 1e-10)
+    dviol = np.where(lo_ok, np.minimum(rc, 0.0),
+                     np.where(up_ok, np.maximum(rc, 0.0), rc))
+    dres = float(np.linalg.norm(dviol) / (1.0 + np.linalg.norm(c_h)))
+    dual_obj = float(b_h @ yv
+                     + np.where(np.isfinite(ln), ln, 0.0)
+                     @ (np.maximum(rc, 0.0) * np.isfinite(ln))
+                     + np.where(np.isfinite(un), un, 0.0)
+                     @ (np.minimum(rc, 0.0) * np.isfinite(un)))
+    pobj_s = float(c_h @ xv)
+    gap = abs(pobj_s - dual_obj) / (1.0 + abs(pobj_s) + abs(dual_obj))
+    return pres, dres, gap
+
+
+def _host(v):
+    """A numpy view of an array or tensor (None stays None)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return None if v is None else np.asarray(v)
+
+
+def pdhg_solve(A, b, c, l, u, sense=None,
+               tol: float = 1e-6,
+               max_iters: int = 100_000,
+               restart_period: int = 200,
+               x0=None, y0=None, rescale: bool = True,
+               polish: bool = True,
+               mode: str = "adaptive",
+               device=None) -> PDHGResult:
+    """Solve an LP with restarted PDHG (Ruiz-equilibrated by default).
+
+    Args:
+        A: (m, n) dense numpy array or tensor.  A sparse A raises
+            ``NotImplementedError`` (ROADMAP 1.11).
+        sense: length-m array of '='/'<' (None = all equality).
+        mode: 'adaptive' (PDLP adaptive step sizes + averaging restarts)
+            or 'halpern' (restarted reflected-Halpern acceleration).
+        device: where the iterations run (default: A's device, else the
+            CPU).  On CUDA every chunk of 64 iterations is one launch of
+            the hand-written kernel, in float32; on the CPU the kernel's
+            plain version runs in A's dtype.
+
+    Returns a ``PDHGResult`` with x, y unscaled to the original problem;
+    the residuals are measured on the host in f64 in the scaled space.
+    """
+    t0 = time.perf_counter()
+    if ssp.issparse(A) or (isinstance(A, torch.Tensor)
+                           and A.layout != torch.strided):
+        raise NotImplementedError(
+            "pdhg_solve: a sparse A is not ported yet (ROADMAP 1.11: the "
+            "BCOO and host-scipy routes); pass a dense A")
+    if mode not in ("adaptive", "halpern"):
+        raise ValueError(f"pdhg_solve: unknown mode {mode!r}")
+    dev = resolve_device(device, A)
+    A_in, b, c, l, u, x0, y0 = (_host(v) for v in (A, b, c, l, u, x0, y0))
+    dtype = device_float(dev, torch.float32 if A_in.dtype == np.float32
+                         else torch.float64)
+    m, n = A_in.shape
+    c_in = np.asarray(c, dtype=np.float64)
+
+    R = C = None
+    A_np = A_in
+    if rescale:
+        R, C = _ruiz_equilibrate(A_in)
+        A_np = A_in * R[:, None] * C[None, :]
+        b = np.asarray(b, dtype=np.float64) * R
+        c = np.asarray(c, dtype=np.float64) * C
+        with np.errstate(invalid="ignore"):
+            l = np.asarray(l, dtype=np.float64) / C
+            u = np.asarray(u, dtype=np.float64) / C
+        if x0 is not None:
+            x0 = np.asarray(x0, dtype=np.float64) / C
+        if y0 is not None:
+            y0 = np.asarray(y0, dtype=np.float64) / R
+
+    def dev_t(v):
+        return torch.as_tensor(v).to(device=dev, dtype=dtype).contiguous()
+
+    At = dev_t(A_np)
+    b, c, l, u = dev_t(b), dev_t(c), dev_t(l), dev_t(u)
+    if sense is None:
+        is_eq = torch.ones(m, dtype=torch.bool, device=dev)
+    else:
+        is_eq = torch.as_tensor(np.asarray(sense) == "=", device=dev)
+    opnorm = estimate_opnorm(At)
+    x0 = torch.clamp(torch.zeros(n, dtype=dtype, device=dev), l, u) \
+        if x0 is None else dev_t(x0)
+    y0 = torch.zeros(m, dtype=dtype, device=dev) if y0 is None \
+        else dev_t(y0)
+
+    check_every = min(64, restart_period)
+    core = _pdhg_core_halpern if mode == "halpern" else _pdhg_core
+    x, y, iters, done = core(At, b, c, l, u, is_eq, opnorm, x0, y0,
+                             max_iters=max_iters, check_every=check_every,
+                             restart_period=restart_period, tol=tol)
+    x = x.double().cpu().numpy()
+    y = y.double().cpu().numpy()
+    # residuals below are measured in the (well-conditioned) scaled space;
+    # the returned x, y, obj_val are unscaled to the original problem
+    x_out = x * C if rescale else x
+    y_out = y * R if rescale else y
+
+    # final residuals (host f64, scaled space — the space the core measured)
+    A_host = ssp.csr_matrix(At.double().cpu().numpy())
+    b_h = b.double().cpu().numpy()
+    c_h = c.double().cpu().numpy()
+    ln = l.double().cpu().numpy()
+    un = u.double().cpu().numpy()
+    eq = is_eq.cpu().numpy()
+
+    pres, dres, gap = _host_kkt(A_host, b_h, c_h, ln, un, eq, x, y)
+    if polish and max(pres, dres, gap) > 1e-14:
+        try:
+            x_p, y_p = _active_set_polish(A_host, b_h, c_h, ln, un, eq, x, y)
+            p2, d2, g2 = _host_kkt(A_host, b_h, c_h, ln, un, eq, x_p, y_p)
+            if max(p2, d2, g2) < max(pres, dres, gap):
+                x, y = x_p, y_p
+                pres, dres, gap = p2, d2, g2
+                x_out = x * C if rescale else x
+                y_out = y * R if rescale else y
+        except Exception:   # polish is best-effort; the FOM pair stands
+            pass
+    done = done or max(pres, dres, gap) < tol
+    obj = float(c_in @ x_out)
+    status = "OPTIMAL" if done else "ITERATION_LIMIT"
+    return PDHGResult(x=x_out, y=y_out, obj_val=obj, iter_count=int(iters),
+                      status=status,
+                      runtime=datetime.timedelta(
+                          seconds=time.perf_counter() - t0),
+                      primal_residual=pres, dual_residual=dres,
+                      gap=gap)

@@ -27,6 +27,22 @@ def test_library_name_follows_the_sources(src_copy):
     assert _build.library_path() != before
 
 
+@pytest.mark.parametrize("name", _build.SOURCES)
+def test_library_name_follows_each_source(src_copy, name):
+    before = _build.library_path()
+    (src_copy / name).write_text((src_copy / name).read_text() + "\n// x\n")
+    assert _build.library_path() != before
+
+
+def test_every_kernel_has_a_source_signature_and_counter():
+    assert _build.SOURCES == ("sinkhorn.cu", "transport_simplex_mega.cu",
+                              "pdhg_chunk.cu", "pdhg_batched.cu")
+    for name in _build.LAUNCHES:
+        assert f"scx_{name}" in _build._SIGNATURES
+    for src in _build.SOURCES:
+        assert (_build.CSRC / src).is_file()
+
+
 def test_existing_library_is_reused(src_copy, monkeypatch):
     lib = _build.library_path()
     lib.parent.mkdir(parents=True)
@@ -69,5 +85,6 @@ def test_launch_counts_reset():
     _build.LAUNCHES["sinkhorn_fused"] += 3
     assert kernel_launch_counts()["sinkhorn_fused"] >= 3
     reset_kernel_launch_counts()
-    assert kernel_launch_counts() == {"sinkhorn_fused": 0,
-                                      "transport_simplex_mega": 0}
+    assert kernel_launch_counts() == {
+        "sinkhorn_fused": 0, "transport_simplex_mega": 0, "pdhg_chunk": 0,
+        "halpern_chunk": 0, "pdhg_batched": 0}

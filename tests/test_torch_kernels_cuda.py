@@ -119,3 +119,146 @@ def test_exact_pipeline_certifies_on_card(cuda):
     assert bool(out[4].all())
     certs = certify_ot_basis_batch(out[5].cpu().numpy(), s, d, M)
     assert all(c.ok for c in certs)
+
+
+# ------------------------------------------------------ dense-LP kernels
+
+def _lp(m, n, seed):
+    """A feasible bounded equality LP and a PDHG start state, float32 on
+    the card."""
+    from smart_crossover_tpu_torch.solvers.pdhg import estimate_opnorm
+
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n)) / np.sqrt(m)
+    b = A @ rng.uniform(0.2, 0.8, n)
+    c = A.T @ rng.standard_normal(m) + np.abs(rng.standard_normal(n)) + 0.05
+    A, b, c = (torch.tensor(v, dtype=torch.float32, device="cuda")
+               for v in (A, b, c))
+    l, u = torch.zeros_like(c), torch.ones_like(c)
+    eq = torch.ones_like(b)
+    eq[: m // 4] = 0.0                        # a quarter '<' rows
+    x, y = torch.zeros_like(c), torch.zeros_like(b)
+    return A, b, c, l, u, eq, x, y, A @ x, estimate_opnorm(A)
+
+
+def _rel(a, b):
+    return (a - b).abs().max().item() / (1.0 + b.abs().max().item())
+
+
+# float32 on both sides with sums in another order.  The adaptive step
+# rule divides by a cancelling sum (curv), which carries ~1e-3 relative
+# rounding in float32: over one chunk eta moves by up to ~2e-3 between
+# the kernel and the plain version (H100), the vectors by ~1e-3
+CHUNK_RTOL = 1e-2
+
+
+@pytest.mark.parametrize("shape", [(512, 2048), (37, 300)])
+def test_pdhg_chunk_kernel_matches_plain(cuda, shape):
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+        pdhg_chunk, pdhg_chunk_plain)
+
+    A, b, c, l, u, eq, x, y, Ax, opn = _lp(*shape, seed=46)
+    z = torch.zeros_like
+    st = pdhg_chunk_plain(A, b, c, l, u, eq, x, y, Ax, z(x), z(y), 0.0,
+                          0.9 / opn, 1.0, 0, opn, chunk=128)
+    args = (A, b, c, l, u, eq, *st, 1.0, 128, opn)
+    n0 = _build.kernel_launch_counts()["pdhg_chunk"]
+    k = pdhg_chunk(*args)
+    again = pdhg_chunk(*args)
+    torch.cuda.synchronize()
+    assert _build.kernel_launch_counts()["pdhg_chunk"] == n0 + 2
+    p = pdhg_chunk_plain(*args)
+    for a, q in zip(k, p):                    # x, y, Ax, xs, ys, wsum, eta
+        assert _rel(a, q) <= CHUNK_RTOL
+    assert all(torch.equal(a, q) for a, q in zip(k, again))
+
+
+@pytest.mark.parametrize("shape", [(512, 2048), (37, 300)])
+def test_halpern_chunk_kernel_matches_plain(cuda, shape):
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+        halpern_chunk, halpern_chunk_plain)
+
+    A, b, c, l, u, eq, x, y, Ax, opn = _lp(*shape, seed=47)
+    step = 0.99 / opn
+    x1, y1, Ax1, _ = halpern_chunk_plain(A, b, c, l, u, eq, x, y, Ax, x, y,
+                                         Ax, 1.0, 0.0, step, chunk=96)
+    args = (A, b, c, l, u, eq, x1, y1, Ax1, x, y, Ax, 1.3, 96.0, step)
+    n0 = _build.kernel_launch_counts()["halpern_chunk"]
+    k = halpern_chunk(*args)
+    again = halpern_chunk(*args)
+    torch.cuda.synchronize()
+    assert _build.kernel_launch_counts()["halpern_chunk"] == n0 + 2
+    p = halpern_chunk_plain(*args)
+    for a, q in zip(k[:3], p[:3]):
+        assert _rel(a, q) <= CHUNK_RTOL
+    assert k[3].item() == float(p[3]) == 160.0
+    assert all(torch.equal(a, q) for a, q in zip(k, again))
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 256), (3, 17, 70)])
+def test_pdhg_batched_kernel_matches_plain(cuda, shape):
+    from smart_crossover_tpu_torch.solvers.pdhg_batched import (
+        _opnorms, pdhg_batched_cuda, pdhg_fixed_batched_plain)
+
+    B, m, n = shape
+    rng = np.random.default_rng(48)
+    A = rng.standard_normal((B, m, n))
+    b = np.einsum("bmn,bn->bm", A, rng.uniform(0.1, 0.9, (B, n)))
+    c = rng.standard_normal((B, n))
+    A, b, c = (torch.tensor(v, dtype=torch.float32, device="cuda")
+               for v in (A, b, c))
+    l, u = torch.zeros_like(c), torch.ones_like(c)
+    opn = _opnorms(A)
+    n0 = _build.kernel_launch_counts()["pdhg_batched"]
+    k = pdhg_batched_cuda(A, b, c, l, u, opn, 50)
+    again = pdhg_batched_cuda(A, b, c, l, u, opn, 50)
+    torch.cuda.synchronize()
+    assert _build.kernel_launch_counts()["pdhg_batched"] == n0 + 2
+    p = pdhg_fixed_batched_plain(A, b, c, l, u, opn, torch.zeros_like(c),
+                                 torch.zeros_like(b), 50)
+    for a, q in zip(k, p):                    # x, y, x_avg, y_avg
+        assert _rel(a, q) <= CHUNK_RTOL
+    assert all(torch.equal(a, q) for a, q in zip(k, again))
+
+
+def test_pdhg_kernels_reject_bad_input(cuda):
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import pdhg_chunk
+
+    A, b, c, l, u, eq, x, y, Ax, opn = _lp(16, 40, seed=49)
+    with pytest.raises(ValueError, match="float32"):
+        pdhg_chunk(A.double(), b, c, l, u, eq, x, y, Ax, x, y, 0.0, 0.01,
+                   1.0, 0, opn)
+
+
+def test_lp_paths_reach_exact_vertices_on_card(cuda):
+    """pdhg_solve (both modes) and batched_lp_crossover on the card, each
+    through its kernel, to vertices equal to HiGHS's objective."""
+    from scipy.optimize import linprog
+
+    from smart_crossover_tpu_torch.parallel.batched_lp import (
+        batched_lp_crossover)
+    from smart_crossover_tpu_torch.solvers.pdhg import pdhg_solve
+
+    rng = np.random.default_rng(50)
+    m, n = 24, 96
+    A = rng.standard_normal((m, n)) / np.sqrt(m)
+    b = A @ rng.uniform(0.2, 0.8, n)
+    c = A.T @ rng.standard_normal(m) + np.abs(rng.standard_normal(n)) + 0.05
+    l, u = np.zeros(n), np.ones(n)
+    ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, 1), method="highs").fun
+    for mode, name in (("adaptive", "pdhg_chunk"),
+                       ("halpern", "halpern_chunk")):
+        _build.reset_kernel_launch_counts()
+        res = pdhg_solve(A, b, c, l, u, tol=1e-4, mode=mode, device=cuda)
+        assert _build.kernel_launch_counts()[name] > 0
+        assert res.status == "OPTIMAL"
+        assert abs(res.obj_val - ref) <= 1e-3 * (1 + abs(ref))
+    Af = np.stack([A, A[::-1]])
+    bf, cf = np.stack([b, b[::-1]]), np.stack([c, c])
+    _build.reset_kernel_launch_counts()
+    out = batched_lp_crossover(Af, bf, cf, np.stack([l, l]),
+                               np.stack([u, u]), pdhg_iters=2000,
+                               device=cuda)
+    assert _build.kernel_launch_counts()["pdhg_batched"] == 1
+    assert out["optimal"].all()
+    np.testing.assert_allclose(out["obj"], [ref, ref], rtol=1e-8)

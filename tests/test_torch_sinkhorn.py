@@ -120,8 +120,8 @@ def test_fused_wrapper_cpu_uses_plain_and_counts_nothing():
     want = sinkhorn_plan_fused_plain(s, d, M, 0.5, 30)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert _build.kernel_launch_counts() == {"sinkhorn_fused": 0,
-                                             "transport_simplex_mega": 0}
+    counts = _build.kernel_launch_counts()
+    assert counts["sinkhorn_fused"] == 0 and not any(counts.values())
 
 
 def test_fused_wrapper_rejects_other_devices():
