@@ -6,8 +6,14 @@
 Phases, one JSON line each, any failure fatal (non-zero exit):
   env     the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
   build   the port's CUDA kernels, compiled from csrc/ with nvcc;
-  k1, k2  the OT kernels against their plain PyTorch versions on the card,
-          at the OT path's shapes (64 x 256^2), with the median time of each;
+  k1      the Sinkhorn kernel against its plain PyTorch version on the
+          card at 64 x 256^2, with the median time of each;
+  k2      the pivot-loop kernel against its plain version at both OT
+          shapes: 64 x 256^2 (seed 0, all 64 instances) and 16 x 784^2
+          (seed 1; the kernel on all 16, median of 3 synced runs; the plain
+          version on the first 4), with the cluster plan (cluster size,
+          resident clusters, shared memory per block, whether N lives in
+          shared memory), per-instance pivots and ms per pivot;
   main    the certified-exact OT crossover, batched_tnet_exact_device, at
           64 x 256^2 and at 16 x 784^2 (bench.py's shapes and seeds): every
           instance certified by the host f64 certifier, both kernels
@@ -22,7 +28,10 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
   main_lp_fleet_32x64x256, main_lp_fleet_64x256x512
           batched_lp_crossover(warm_engine="pdhg"): every instance optimal
           and equal to HiGHS to 1e-8;
-then the card's nvidia-smi line, the kernels' summary and, last,
+then the card's nvidia-smi line, the kernels' summary (each kernel's
+median ms, launches on the main path, the plain version's ms, and its
+bound: the larger of the operations these inputs need at the card's
+float32 peak and the bytes it must move at the HBM rate) and, last,
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.  It imports nothing of JAX.
 """
@@ -60,6 +69,10 @@ F64_RATIO, F64_FLOOR = 4.0, 1e-5
 K5_LONG_AVG_RTOL = 5e-2
 LP_OBJ_RTOL = 1e-8      # exact vertex vs HiGHS
 DEVICE = "cuda"
+# H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
+# cores, and HBM3
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def emit(obj) -> None:
@@ -83,6 +96,24 @@ def sync_time(fn, reps: int):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return out, float(np.median(times)), times
+
+
+def bound(ops: float, nbytes: float):
+    """(ms, what sets it): the least time the card could take for work of
+    `ops` float32 operations that must move `nbytes` bytes."""
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def summary(name, source, replaces, err, ms, plain_ms, work):
+    """A kernel's entry of the summary line; no single PyTorch call
+    computes any of these kernels' functions, so library_ms is null."""
+    b_ms, b_by = bound(*work)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def run(cmd):
@@ -141,47 +172,88 @@ def phase_k1(scx, s, d, M):
     require(df <= K1_POT_ATOL and dg <= K1_POT_ATOL,
             f"k1 potentials differ from plain: {df}, {dg}")
     require(dplan <= K1_PLAN_RTOL * pmax, f"k1 plan differs: {dplan}")
-    return {"name": "sinkhorn_fused", "route": "cuda",
-            "source": "smart_crossover_tpu_torch/csrc/sinkhorn.cu",
-            "replaces": "smart_crossover_tpu/ops/sinkhorn_pallas.py:26",
-            "max_abs_err": max(df, dg), "ms": ms, "plain_ms": plain_ms}
+    return summary("sinkhorn_fused", "smart_crossover_tpu_torch/csrc/"
+                   "sinkhorn.cu",
+                   "smart_crossover_tpu/ops/sinkhorn_pallas.py:26",
+                   max(df, dg), ms, plain_ms, sinkhorn_work(*M.shape))
 
 
-def phase_k2(scx, s, d, M):
+def sinkhorn_work(B, S, D):
+    """Per cell and half-iteration: (g - M) / reg, max, subtract, exp,
+    add; the plan 4 more.  M, s, d in and plan, f, g out, once."""
+    return (B * S * D * (12 * SINKHORN_ITERS + 4),
+            4 * (2 * B * S * D + 2 * B * (S + D)))
+
+
+def k2_at(scx, B, S, D, seed, reps, n_plain):
+    """The pivot-loop kernel on bench.py's batch (B, S, D, seed) against
+    its plain version on the first n_plain instances; its record, the
+    objectives' largest gap and the work that bounds it."""
+    import torch
+
+    import bench
+    from smart_crossover_tpu_torch.ops import transport_simplex_mega as tsm
     from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
-    from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
-        mega_setup, rebuild_plan, transport_simplex_mega,
-        transport_simplex_mega_plain)
 
+    s, d, M = to_cuda(*bench.make_batch(B, S, D, seed=seed))
     X0, _, _ = scx.batched_tnet(s, d, M, REG, SINKHORN_ITERS)
-    st = mega_setup(X0, boruvka_bipartite_mst((X0 > 1e-12).float()), M)
-    k, ms, _ = sync_time(lambda: transport_simplex_mega(
-        st, max_pivots=MAX_PIVOTS), 5)
-    p, plain_ms, _ = sync_time(lambda: transport_simplex_mega_plain(
-        st, max_pivots=MAX_PIVOTS), 2)
-    S, D = M.shape[1:]
-    M64 = M.double()
-    obj_k = (rebuild_plan(k[0], k[1], S, D).double() * M64).sum((1, 2))
-    obj_p = (rebuild_plan(p[0], p[1], S, D).double() * M64).sum((1, 2))
+    st = tsm.mega_setup(X0, boruvka_bipartite_mst((X0 > 1e-12).float()), M)
+    k, ms, all_ms = sync_time(lambda: tsm.transport_simplex_mega(
+        st, max_pivots=MAX_PIVOTS), reps)
+    plan = dict(tsm.LAST_LAUNCH)
+    again = tsm.transport_simplex_mega(st, max_pivots=MAX_PIVOTS)
+    identical = all(torch.equal(a, q) for a, q in zip(k, again))
+    sub = {n: v[:n_plain] for n, v in st.items()}
+    p, plain_ms, _ = sync_time(lambda: tsm.transport_simplex_mega_plain(
+        sub, max_pivots=MAX_PIVOTS), 2 if n_plain == B else 1)
+    M64 = M[:n_plain].double()
+    obj_k = (tsm.rebuild_plan(k[0][:n_plain], k[1][:n_plain], S, D).double()
+             * M64).sum((1, 2))
+    obj_p = (tsm.rebuild_plan(p[0], p[1], S, D).double() * M64).sum((1, 2))
     err = (obj_k - obj_p).abs().max().item()
     rel = ((obj_k - obj_p).abs() / obj_p.abs()).max().item()
-    same_basis = int((k[4] == p[4]).all((1, 2)).sum().item())
-    emit({"phase": "k2_transport_simplex_mega", "shape": list(M.shape),
-          "all_optimal_kernel": bool(k[6].all()),
-          "all_optimal_plain": bool(p[6].all()),
-          "pivots_kernel": k[5].tolist(), "pivots_plain": p[5].tolist(),
-          "same_pivots": int((k[5] == p[5]).sum().item()),
-          "same_final_basis": same_basis,
-          "max_abs_dobj": err, "max_rel_dobj": rel, "ms": ms,
-          "plain_ms": plain_ms, "tolerance": {"obj_rtol": K2_OBJ_RTOL}})
+    piv = k[5].tolist()
+    rec = {"phase": "k2_transport_simplex_mega", "shape": [B, S, D],
+           "seed": seed, "cluster_size": plan["cluster_size"],
+           "max_active_clusters": plan["max_active_clusters"],
+           "smem_bytes_per_block": plan["smem_bytes"],
+           "n_in_smem": plan["n_in_smem"],
+           "mask_in_smem": plan["mask_in_smem"],
+           "all_optimal_kernel": bool(k[6].all()),
+           "all_optimal_plain": bool(p[6].all()),
+           "pivots_kernel": piv, "pivots_plain": p[5].tolist(),
+           "plain_instances": n_plain,
+           "same_pivots": int((k[5][:n_plain] == p[5]).sum().item()),
+           "same_final_basis": int((k[4][:n_plain] == p[4]).all((1, 2))
+                                   .sum().item()),
+           "repeat_bit_identical": identical,
+           "max_abs_dobj": err, "max_rel_dobj": rel, "ms": ms,
+           "all_ms": all_ms, "ms_per_pivot": ms / max(max(piv), 1),
+           "plain_ms": plain_ms, "tolerance": {"obj_rtol": K2_OBJ_RTOL}}
+    emit(rec)
     require(bool(k[6].all()) and bool(p[6].all()), "k2 not all optimal")
     require(rel <= K2_OBJ_RTOL, f"k2 objectives differ: rel {rel}")
-    return {"name": "transport_simplex_mega", "route": "cuda",
-            "source": "smart_crossover_tpu_torch/csrc/"
-                      "transport_simplex_mega.cu",
-            "replaces": "smart_crossover_tpu/ops/transport_simplex_mega.py:73",
-            # objectives of the two final plans (their bases may tie)
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    require(identical, "k2 repeat launch not bit-identical")
+    V = S + D
+    # every pricing pass (pivots + 1 per instance) takes two subtractions
+    # and a comparison per cell; M, N, the mask and the node vectors in,
+    # the mask and node vectors out, once
+    work = (3 * S * D * sum(n + 1 for n in piv),
+            B * (4 * S * D + V * V + 2 * S * D + 32 * V))
+    return err, ms, plain_ms, work
+
+
+def phase_k2(scx):
+    err, ms, plain_ms, work = k2_at(scx, 64, 256, 256, 0, 5, 64)
+    err7, ms7, plain7, work7 = k2_at(scx, 16, 784, 784, 1, 3, 4)
+    out = summary("transport_simplex_mega", "smart_crossover_tpu_torch/"
+                  "csrc/transport_simplex_mega.cu",
+                  "smart_crossover_tpu/ops/transport_simplex_mega.py:73",
+                  # objectives of the two final plans (their bases may tie)
+                  max(err, err7), ms, plain_ms, work)
+    b7, _ = bound(*work7)
+    out.update(ms_784=ms7, plain_ms_784_first4=plain7, bound_ms_784=b7)
+    return out
 
 
 def stage_split(s, d, M):
@@ -235,6 +307,7 @@ def phase_main(scx, B, S, D, seed, reps):
     import torch
 
     import bench
+    from smart_crossover_tpu_torch.ops import transport_simplex_mega as tsm
 
     s64, d64, M64 = bench.make_batch(B, S, D, seed=seed)
     s, d, M = to_cuda(s64, d64, M64)
@@ -250,6 +323,7 @@ def phase_main(scx, B, S, D, seed, reps):
     out = go()
     torch.cuda.synchronize()
     counts = scx.kernel_launch_counts()
+    k2_cluster = tsm.LAST_LAUNCH["cluster_size"]
     _, dev_ms, all_ms = sync_time(go, reps)
     X, obj, push, piv, opt, Bm = out
     t0 = time.perf_counter()
@@ -273,7 +347,8 @@ def phase_main(scx, B, S, D, seed, reps):
            "device_stage_ms_median": dev_ms, "device_stage_ms": all_ms,
            "certify_s": cert_s,
            "certified_instances_per_s": B / (dev_ms / 1e3 + cert_s),
-           "launches": counts, "stage_ms": split,
+           "launches": counts, "k2_cluster_size": k2_cluster,
+           "stage_ms": split,
            "stage_split_push_max": push_max}
     emit(rec)
     require(X.shape == (B, S, D) and bool(torch.isfinite(X).all())
@@ -284,6 +359,7 @@ def phase_main(scx, B, S, D, seed, reps):
     require(counts["sinkhorn_fused"] > 0
             and counts["transport_simplex_mega"] > 0,
             f"a kernel was not launched on the OT path: {counts}")
+    require(k2_cluster > 1, f"K2 ran {k2_cluster} block per instance")
     return counts
 
 
@@ -352,6 +428,13 @@ def pdhg_start(m, n, seed):
     return A, b, c, l, u, eq, x, y, A @ x, estimate_opnorm(A)
 
 
+def chunk_work(m, n, vec_floats, iters=64):
+    """PDHG iterations on an m x n A: two matrix-vector products (4mn
+    operations) and about 16 vector operations per row and column each;
+    A and `vec_floats` vector entries moved once."""
+    return iters * (4 * m * n + 16 * (m + n)), 4 * (m * n + vec_floats)
+
+
 def phase_k3(m, n, seed):
     import torch
 
@@ -386,10 +469,10 @@ def phase_k3(m, n, seed):
             and err["rel_deta"] <= ETA_RTOL, f"k3 differs from plain: {err}")
     require(not worse, f"k3 less accurate than plain on {worse}: {acc}")
     require(identical, "k3 repeat launch not bit-identical")
-    return {"name": "pdhg_chunk", "route": "cuda",
-            "source": "smart_crossover_tpu_torch/csrc/pdhg_chunk.cu",
-            "replaces": "smart_crossover_tpu/ops/pdhg_pallas.py:31",
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+    return summary("pdhg_chunk", "smart_crossover_tpu_torch/csrc/"
+                   "pdhg_chunk.cu",
+                   "smart_crossover_tpu/ops/pdhg_pallas.py:31", abs_err, ms,
+                   plain_ms, chunk_work(m, n, 8 * m + 7 * n))
 
 
 def phase_k4(m, n, seed):
@@ -427,10 +510,10 @@ def phase_k4(m, n, seed):
     require(not worse, f"k4 less accurate than plain on {worse}: {acc}")
     require(k[3].item() == float(p[3]) == 192.0, "k4 returned a wrong k")
     require(identical, "k4 repeat launch not bit-identical")
-    return {"name": "halpern_chunk", "route": "cuda",
-            "source": "smart_crossover_tpu_torch/csrc/pdhg_chunk.cu",
-            "replaces": "smart_crossover_tpu/ops/pdhg_pallas.py:183",
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+    return summary("halpern_chunk", "smart_crossover_tpu_torch/csrc/"
+                   "pdhg_chunk.cu",
+                   "smart_crossover_tpu/ops/pdhg_pallas.py:183", abs_err, ms,
+                   plain_ms, chunk_work(m, n, 8 * m + 6 * n))
 
 
 def phase_k5(B, m, n, seed, iters):
@@ -476,10 +559,17 @@ def phase_k5(B, m, n, seed, iters):
             and long[f"rel_dy_avg_{iters}"] <= K5_LONG_AVG_RTOL,
             f"k5 averages differ from plain at {iters}: {long}")
     require(identical, "k5 repeat launch not bit-identical")
-    return {"name": "pdhg_batched", "route": "cuda",
-            "source": "smart_crossover_tpu_torch/csrc/pdhg_batched.cu",
-            "replaces": "smart_crossover_tpu/solvers/pdhg_batched.py:100",
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+    return summary("pdhg_batched", "smart_crossover_tpu_torch/csrc/"
+                   "pdhg_batched.cu",
+                   "smart_crossover_tpu/solvers/pdhg_batched.py:100",
+                   abs_err, ms, plain_ms, fleet_work(B, m, n, iters))
+
+
+def fleet_work(B, m, n, iters):
+    """B instances of `iters` PDHG iterations; A, b, c, l, u and the norms
+    in, x, y and their averages out, once."""
+    ops, _ = chunk_work(m, n, 0, iters)
+    return B * ops, 4 * B * (m * n + 3 * m + 5 * n + 1)
 
 
 def phase_lp_single(scx, m, n, seed):
@@ -577,7 +667,7 @@ def phase_lp_fleet(scx, B, m, n, seed, reps):
     require(bool(rel.max() <= LP_OBJ_RTOL), f"fleet off HiGHS: {rel.max()}")
     require(bool(np.isfinite(out["x_bar"]).all()), "fleet warm start not finite")
     require(counts["pdhg_batched"] > 0, f"K5 not launched: {counts}")
-    return counts
+    return counts, dev_ms
 
 
 def main() -> int:
@@ -597,22 +687,27 @@ def main() -> int:
     import bench
 
     s, d, M = to_cuda(*bench.make_batch(64, 256, 256, seed=0))
-    kernels = [phase_k1(scx, s, d, M), phase_k2(scx, s, d, M)]
+    kernels = [phase_k1(scx, s, d, M), phase_k2(scx)]
     counts = phase_main(scx, 64, 256, 256, seed=0, reps=5)
     counts7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_784"] = counts7[k["name"]]
+    kernels[0]["bound_ms_784"] = bound(*sinkhorn_work(16, 784, 784))[0]
 
     kernels += [phase_k3(512, 2048, seed=3), phase_k4(512, 2048, seed=3),
                 phase_k5(32, 64, 256, seed=5, iters=2000)]
     single = phase_lp_single(scx, 512, 2048, seed=7)
-    fleet = phase_lp_fleet(scx, 32, 64, 256, seed=5, reps=5)
-    fleet_big = phase_lp_fleet(scx, 64, 256, 512, seed=6, reps=3)
+    fleet, _ = phase_lp_fleet(scx, 32, 64, 256, seed=5, reps=5)
+    fleet_big, big_ms = phase_lp_fleet(scx, 64, 256, 512, seed=6, reps=3)
     kernels[2]["launches"] = single["adaptive"]["pdhg_chunk"]
     kernels[3]["launches"] = single["halpern"]["halpern_chunk"]
     kernels[4]["launches"] = fleet["pdhg_batched"]
     kernels[4]["launches_64x256x512"] = fleet_big["pdhg_batched"]
+    # the whole pdhg_dense_batched call at the larger fleet, 4000 iterations
+    kernels[4]["call_ms_64x256x512"] = big_ms
+    kernels[4]["bound_ms_64x256x512"] = bound(*fleet_work(64, 256, 512,
+                                                          4000))[0]
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.")

@@ -38,10 +38,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # s, d, M, plan, f, g, log_s, log_d, B, S, D, reg, num_iters, stream
     "scx_sinkhorn_fused": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
-    # M, N_in, mask_in, parent_in, dep_in, w_in, Xv_in,
-    # N_work, mask_out, parent_out, Xv_out, w_out, pot_out, stats,
-    # B, S, D, tol, max_pivots, refresh, stream
-    "scx_transport_simplex_mega": [_P] * 14 + [_I, _I, _I, _F, _I, _I, _P],
+    # M, N_in, mask_in, parent_in, dep_in, w_in, Xv_in, N_glob, mask_glob,
+    # mask_out, parent_out, Xv_out, w_out, pot_out, stats,
+    # B, S, D, C, n_smem, mask_smem, tol, max_pivots, refresh, stream
+    "scx_transport_simplex_mega": [_P] * 15 + [_I] * 6 + [_F, _I, _I, _P],
+    # S, D, C, n_smem, mask_smem -> bytes of dynamic shared memory
+    "scx_transport_simplex_mega_smem_bytes": [_I] * 5,
+    # B, S, D, C, n_smem, mask_smem -> resident clusters (or -error)
+    "scx_transport_simplex_mega_max_clusters": [_I] * 6,
     # A, b, c, l, u, eq, xbuf, ybuf, axbuf, xs, ys, scal_in, scal_out, part,
     # x_out, y_out, ax_out, m, n, chunk, stream
     "scx_pdhg_chunk": [_P] * 17 + [_I, _I, _I, _P],

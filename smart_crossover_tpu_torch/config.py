@@ -20,12 +20,17 @@ HOST_FLOAT = np.float64
 
 def resolve_device(device=None, like=None) -> torch.device:
     """``device`` if given, else the device of the tensor ``like``, else
-    the CPU."""
+    the CUDA card.  Without a card that default raises: the entry points
+    run on the CPU only when the caller asks for it."""
     if device is not None:
         return torch.device(device)
     if isinstance(like, torch.Tensor):
         return like.device
-    return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run the plain versions on the CPU")
+    return torch.device("cuda")
 
 
 def device_float(device, dtype=torch.float64) -> torch.dtype:

@@ -60,9 +60,11 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
 
     Args:
         s, d, M: (B, S), (B, D), (B, S, D) numpy arrays or tensors.
-        device: where to run (default: M's device, else the CPU).  On CUDA
-            the stages run in float32 through the hand-written kernels; on
-            the CPU in the input's dtype through their plain versions.
+        device: where to run (default: M's device if M is a tensor, else
+            the CUDA card; without one that default raises).  On CUDA the
+            stages run in float32 through the hand-written kernels; with
+            ``device="cpu"`` in the input's dtype through their plain
+            versions.
 
     Returns (X, obj, push_iters, pivots, optimal, basis_mask), batched
     tensors on ``device``; ``network_methods.certify`` recomputes the exact

@@ -33,8 +33,9 @@ def batched_lp_crossover(A, b, c, l, u, warm_engine: str = "pdhg",
             matvecs per iteration).  The JAX package's default 'ipm' and
             its 'ipm_refined' raise NotImplementedError (ROADMAP 1.12).
         pdhg_iters: fixed PDHG iterations for the whole fleet.
-        device: where the warm start runs (default: A's device, else the
-            CPU); the crossover always runs on the host in f64.
+        device: where the warm start runs (default: A's device if A is a
+            tensor, else the CUDA card; without one that default raises);
+            the crossover always runs on the host in f64.
 
     Returns:
         dict with x (B, n) vertex solutions, obj (B,), pivots (B,),

@@ -403,10 +403,11 @@ def pdhg_solve(A, b, c, l, u, sense=None,
         sense: length-m array of '='/'<' (None = all equality).
         mode: 'adaptive' (PDLP adaptive step sizes + averaging restarts)
             or 'halpern' (restarted reflected-Halpern acceleration).
-        device: where the iterations run (default: A's device, else the
-            CPU).  On CUDA every chunk of 64 iterations is one launch of
-            the hand-written kernel, in float32; on the CPU the kernel's
-            plain version runs in A's dtype.
+        device: where the iterations run (default: A's device if A is a
+            tensor, else the CUDA card; without one that default raises).
+            On CUDA every chunk of 64 iterations is one launch of the
+            hand-written kernel, in float32; with ``device="cpu"`` the
+            kernel's plain version runs in A's dtype.
 
     Returns a ``PDHGResult`` with x, y unscaled to the original problem;
     the residuals are measured on the host in f64 in the scaled space.

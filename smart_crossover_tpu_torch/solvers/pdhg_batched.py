@@ -114,8 +114,9 @@ def pdhg_dense_batched(A, b, c, l, u, iters: int = 2000, device=None):
 
     Args:
         A: (B, m, n); b: (B, m); c, l, u: (B, n), numpy arrays or tensors.
-        device: where to run (default: A's device, else the CPU).  CUDA
-            runs the kernel in float32; the CPU runs the plain version in
+        device: where to run (default: A's device if A is a tensor, else
+            the CUDA card; without one that default raises).  CUDA runs the
+            kernel in float32; ``device="cpu"`` runs the plain version in
             A's dtype.
 
     Returns dict with x, y (last iterates), x_avg, y_avg (step-weighted

@@ -43,7 +43,8 @@ def test_certify_optimal_and_suboptimal_bases(shape):
     rng, s, d, M = _instances(3, S, D, seed=21)
     W = torch.from_numpy(rng.uniform(0, 1, (3, S, D)))
     trees = boruvka_bipartite_mst(W).numpy()
-    opt_bases = batched_tnet_exact_device(s, d, M, sinkhorn_iters=100)[5]
+    opt_bases = batched_tnet_exact_device(s, d, M, sinkhorn_iters=100,
+                                          device="cpu")[5]
     bases = np.concatenate([trees, opt_bases.numpy()])
     ss, dd, MM = (np.concatenate([a, a]) for a in (s, d, M))
     t = tcert.certify_ot_basis_batch(bases, ss, dd, MM)

@@ -15,6 +15,7 @@ from smart_crossover_tpu_torch.ops.sinkhorn_fused import (
     sinkhorn_plan_fused,
     sinkhorn_plan_fused_plain,
 )
+from smart_crossover_tpu_torch.ops import transport_simplex_mega as tsm
 from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
     mega_setup,
     rebuild_plan,
@@ -71,25 +72,90 @@ def test_sinkhorn_kernel_rejects_bad_input(cuda):
         sinkhorn_plan_fused(s, d, M, 1.0, 3)
 
 
-@pytest.mark.parametrize("shape", [(1, 2, 2), (5, 7, 300), (3, 13, 29),
-                                   (4, 64, 100)])
-def test_mega_kernel_matches_plain(cuda, shape):
-    s, d, M = (torch.tensor(a, dtype=torch.float32, device=cuda)
-               for a in _batch(*shape, seed=43))
-    # one shared warm start: the slice's TNET vertex and its support tree
+def _nw_state(B, S, D, seed):
+    """Northwest-corner starts (far from optimal, so the kernel walks many
+    pivots) on uniform costs, float32 on the card."""
+    rng = np.random.default_rng(seed)
+    M = rng.uniform(0.0, 1.0, (B, S, D)).astype(np.float32)
+    X = np.zeros((B, S, D), np.float32)
+    Bm = np.zeros((B, S, D), bool)
+    for b in range(B):
+        s = rng.uniform(0.5, 1.5, S)
+        d = rng.uniform(0.5, 1.5, D)
+        s /= s.sum()
+        d /= d.sum()
+        i = j = 0
+        while True:
+            t = min(s[i], d[j])
+            X[b, i, j], Bm[b, i, j] = t, True
+            s[i] -= t
+            d[j] -= t
+            if i == S - 1 and j == D - 1:
+                break
+            if j == D - 1 or (i < S - 1 and s[i] <= d[j]):
+                i += 1
+            else:
+                j += 1
+    return mega_setup(*(torch.tensor(a, device="cuda") for a in (X, Bm, M)))
+
+
+def _tnet_state(B, S, D, seed):
+    """The slice's own warm start: the TNET vertex and its support tree."""
+    s, d, M = (torch.tensor(a, dtype=torch.float32, device="cuda")
+               for a in _batch(B, S, D, seed))
     X0, _, _ = batched_tnet(s, d, M, reg=0.005, sinkhorn_iters=300)
-    st = mega_setup(X0, boruvka_bipartite_mst((X0 > 1e-12).float()), M)
+    return mega_setup(X0, boruvka_bipartite_mst((X0 > 1e-12).float()), M)
+
+
+def _budget(S, D, C, layout):
+    """A shared-memory budget that forces the layout: both slices in
+    shared memory, N in global memory, or N and the mask in global memory."""
+    if layout == "smem":
+        return tsm.SMEM_PER_BLOCK
+    return tsm._STATIC_SMEM + tsm.mega_smem_bytes(S, D, C, False,
+                                                  layout == "n_global")
+
+
+# (start, shape, layout, cluster size on a 132-SM card): C = 1 (B = 133),
+# 2 and 8; D not a multiple of 4 (29, 67, 5); V not a multiple of 32; N
+# and then the mask in global memory
+@pytest.mark.parametrize("start,shape,layout,C", [
+    ("tnet", (1, 2, 2), "smem", 8),
+    ("tnet", (5, 7, 300), "smem", 8),
+    ("tnet", (3, 13, 29), "smem", 8),
+    ("tnet", (4, 64, 100), "smem", 8),
+    ("nw", (133, 3, 5), "smem", 1),
+    ("nw", (40, 13, 29), "smem", 2),
+    ("nw", (16, 40, 61), "smem", 8),
+    ("nw", (16, 33, 67), "n_global", 8),
+    ("nw", (4, 33, 67), "all_global", 8),
+])
+def test_mega_kernel_matches_plain(cuda, start, shape, layout, C):
+    B, S, D = shape
+    st = (_tnet_state if start == "tnet" else _nw_state)(*shape, seed=43)
+    budget = _budget(S, D, C, layout)
     n0 = _build.kernel_launch_counts()["transport_simplex_mega"]
-    k = transport_simplex_mega(st, max_pivots=5000)
+    k = transport_simplex_mega(st, max_pivots=5000, smem_budget=budget)
     torch.cuda.synchronize()
     assert _build.kernel_launch_counts()["transport_simplex_mega"] == n0 + 1
+    plan = tsm.LAST_LAUNCH
+    if torch.cuda.get_device_properties(0).multi_processor_count == 132:
+        assert plan["cluster_size"] == C
+    assert plan["n_in_smem"] == (layout == "smem")
+    assert plan["mask_in_smem"] == (layout != "all_global")
     p = transport_simplex_mega_plain(st, max_pivots=5000)
     assert bool(k[6].all()) and bool(p[6].all())
-    S, D = shape[1:]
     Mt = st["M"].double()
     obj_k = (rebuild_plan(k[0], k[1], S, D).double() * Mt).sum((1, 2))
     obj_p = (rebuild_plan(p[0], p[1], S, D).double() * Mt).sum((1, 2))
     torch.testing.assert_close(obj_k, obj_p, rtol=1e-5, atol=0)
+
+
+def test_mega_kernel_raises_beyond_its_cap(cuda):
+    V = tsm.max_kernel_nodes() + 1
+    st = _nw_state(1, 2, V - 2, seed=46)
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        transport_simplex_mega(st)
 
 
 def test_kernels_are_deterministic(cuda):
@@ -103,6 +169,10 @@ def test_kernels_are_deterministic(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     X0 = batched_tnet(s, d, M, reg=0.005, sinkhorn_iters=200)[0]
     st = mega_setup(X0, boruvka_bipartite_mst((X0 > 1e-12).float()), M)
+    a = transport_simplex_mega(st)
+    b = transport_simplex_mega(st)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    st = _nw_state(16, 40, 61, seed=45)        # a cluster of 8 per instance
     a = transport_simplex_mega(st)
     b = transport_simplex_mega(st)
     assert all(torch.equal(x, y) for x, y in zip(a, b))

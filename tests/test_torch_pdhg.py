@@ -169,7 +169,7 @@ def test_pdhg_solve_matches_jax_and_highs(rng, make, tol, max_iters, mode):
     A, b, c, l, u, sense = make(rng)
     kw = dict(sense=sense, tol=tol, max_iters=max_iters, mode=mode)
     want = jp.pdhg_solve(A, b, c, l, u, use_pallas=True, **kw)
-    got = pdhg_solve(A, b, c, l, u, **kw)
+    got = pdhg_solve(A, b, c, l, u, device="cpu", **kw)
     ref = _highs(A, b, c, l, u, sense)
     assert ref.status == 0
     assert got.status == want.status == "OPTIMAL"
@@ -184,7 +184,7 @@ def test_pdhg_solve_takes_tensors(rng):
     tensor's)."""
     A, b, c, l, u, sense = _lp_eq(rng)
     kw = dict(sense=sense, tol=1e-7, max_iters=30_000)
-    a = pdhg_solve(A, b, c, l, u, **kw)
+    a = pdhg_solve(A, b, c, l, u, device="cpu", **kw)
     t = pdhg_solve(*_t(A, b, c, l, u), **kw)
     assert a.iter_count == t.iter_count
     np.testing.assert_array_equal(a.x, t.x)
@@ -227,5 +227,6 @@ def test_cpu_route_launches_no_kernel(rng):
     A, b, c, l, u, sense = _lp_eq(rng, 6, 20)
     _build.reset_kernel_launch_counts()
     for mode in ("adaptive", "halpern"):
-        pdhg_solve(A, b, c, l, u, sense=sense, max_iters=128, mode=mode)
+        pdhg_solve(A, b, c, l, u, sense=sense, max_iters=128, mode=mode,
+                   device="cpu")
     assert not any(_build.kernel_launch_counts().values())

@@ -40,7 +40,7 @@ def test_pdhg_dense_batched_matches_jax(rng, use_pallas):
     A, b, c, l, u = make_fleet(rng, 4, 16, 128)
     want = jpb.pdhg_dense_batched(A, b, c, l, u, iters=40,
                                   use_pallas=use_pallas)
-    got = pdhg_dense_batched(A, b, c, l, u, iters=40)
+    got = pdhg_dense_batched(A, b, c, l, u, iters=40, device="cpu")
     for k in ("x", "y", "x_avg", "y_avg"):
         assert got[k].dtype == torch.float64
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
@@ -55,7 +55,7 @@ def test_batched_lp_crossover_matches_jax_and_highs(rng):
     B, m, n = 4, 10, 40
     A, b, c, l, u = make_fleet(rng, B, m, n)
     out = batched_lp_crossover(A, b, c, l, u, warm_engine="pdhg",
-                               pdhg_iters=4000)
+                               pdhg_iters=4000, device="cpu")
     jout = j_crossover(A, b, c, l, u, warm_engine="pdhg", pdhg_iters=4000)
     assert out["optimal"].all() and np.asarray(jout["optimal"]).all()
     np.testing.assert_allclose(out["obj"], jout["obj"], rtol=0, atol=1e-8)
@@ -70,7 +70,7 @@ def test_batched_lp_crossover_matches_jax_and_highs(rng):
 
 def test_batched_lp_crossover_takes_tensors(rng):
     A, b, c, l, u = make_fleet(rng, 2, 6, 20)
-    a = batched_lp_crossover(A, b, c, l, u, pdhg_iters=500)
+    a = batched_lp_crossover(A, b, c, l, u, pdhg_iters=500, device="cpu")
     t = batched_lp_crossover(*(torch.from_numpy(v) for v in (A, b, c, l, u)),
                              pdhg_iters=500)
     np.testing.assert_array_equal(a["x_bar"], t["x_bar"])
