@@ -7,7 +7,10 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
   env     the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
   build   the port's CUDA kernels, compiled from csrc/ with nvcc;
   k1      the Sinkhorn kernel against its plain PyTorch version on the
-          card at 64 x 256^2, with the median time of each;
+          card at 64 x 256^2 (seed 0) and 16 x 784^2 (seed 1), with the
+          median time of each, ms per iteration and the cluster plan
+          (cluster size, resident clusters, waves, rows of M in shared
+          memory, shared memory per block);
   k2      the pivot-loop kernel against its plain version at both OT
           shapes: 64 x 256^2 (seed 0, all 64 instances) and 16 x 784^2
           (seed 1; the kernel on all 16, median of 3 synced runs; the plain
@@ -30,8 +33,10 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           and equal to HiGHS to 1e-8;
 then the card's nvidia-smi line, the kernels' summary (each kernel's
 median ms, launches on the main path, the plain version's ms, and its
-bound: the larger of the operations these inputs need at the card's
-float32 peak and the bytes it must move at the HBM rate) and, last,
+bound: the largest of the operations these inputs need at the card's
+float32 peak, the bytes it must move at the HBM rate and, for K1, the
+exps at the MUFU rate, 16 per clock per SM at the card's max SM clock)
+and, last,
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.  It imports nothing of JAX.
 """
@@ -73,6 +78,10 @@ DEVICE = "cuda"
 # cores, and HBM3
 F32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# MUFU ex2 per clock per SM (Hopper); the exp rate is this times the SM
+# count times the max SM clock, set by phase_env from the card
+EX2_PER_CLOCK_PER_SM = 16
+EXP_PER_S = None
 
 
 def emit(obj) -> None:
@@ -98,12 +107,13 @@ def sync_time(fn, reps: int):
     return out, float(np.median(times)), times
 
 
-def bound(ops: float, nbytes: float):
+def bound(ops: float, nbytes: float, exps: float = 0.0):
     """(ms, what sets it): the least time the card could take for work of
-    `ops` float32 operations that must move `nbytes` bytes."""
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    `ops` float32 operations and `exps` exponentials that must move
+    `nbytes` bytes."""
+    return max((ops / F32_OPS_PER_S * 1e3, "operations"),
+               (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (exps / EXP_PER_S * 1e3 if exps else 0.0, "exp"))
 
 
 def summary(name, source, replaces, err, ms, plain_ms, work):
@@ -122,13 +132,19 @@ def run(cmd):
 
 
 def phase_env(torch, build):
+    global EXP_PER_S
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
+    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                     "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    EXP_PER_S = EX2_PER_CLOCK_PER_SM * sms * mhz * 1e6
     nvcc = run([build._nvcc(), "--version"]).splitlines()[-1]
     emit({"phase": "env", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "nvcc": nvcc,
           "device": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count()})
+          "count": torch.cuda.device_count(), "sms": sms,
+          "max_sm_mhz": mhz, "exp_per_s": EXP_PER_S})
     return smi
 
 
@@ -148,41 +164,68 @@ def to_cuda(*arrays):
             for a in arrays]
 
 
-def phase_k1(scx, s, d, M):
-    from smart_crossover_tpu_torch.ops.sinkhorn_fused import (
-        sinkhorn_plan_fused, sinkhorn_plan_fused_plain)
+def k1_at(B, S, D, seed, reps, plain_reps):
+    """The Sinkhorn kernel on bench.py's batch (B, S, D, seed), eps folded
+    into M as the main path folds it, against its plain version; its
+    record, largest potential gap, kernel and plain ms and work."""
+    import torch
 
+    import bench
+    from smart_crossover_tpu_torch.ops import sinkhorn_fused as sf
+
+    s, d, M = to_cuda(*bench.make_batch(B, S, D, seed=seed))
     Mn = (M / (REG * M.amax((1, 2)))[:, None, None]).contiguous()
-    (plan, f, g), ms, _ = sync_time(
-        lambda: sinkhorn_plan_fused(s, d, Mn, 1.0, SINKHORN_ITERS), 5)
+    (plan, f, g), ms, all_ms = sync_time(
+        lambda: sf.sinkhorn_plan_fused(s, d, Mn, 1.0, SINKHORN_ITERS), reps)
+    lay = dict(sf.LAST_LAUNCH)
+    again = sf.sinkhorn_plan_fused(s, d, Mn, 1.0, SINKHORN_ITERS)
+    identical = all(torch.equal(a, q) for a, q in zip((plan, f, g), again))
     (pp, pf, pg), plain_ms, _ = sync_time(
-        lambda: sinkhorn_plan_fused_plain(s, d, Mn, 1.0, SINKHORN_ITERS), 3)
+        lambda: sf.sinkhorn_plan_fused_plain(s, d, Mn, 1.0, SINKHORN_ITERS),
+        plain_reps)
     df = (f - pf).abs().max().item()
     dg = (g - pg).abs().max().item()
     dplan = (plan - pp).abs().max().item()
     pmax = pp.abs().max().item()
-    rec = {"phase": "k1_sinkhorn", "shape": list(M.shape),
-           "iters": SINKHORN_ITERS, "max_abs_df": df, "max_abs_dg": dg,
-           "max_abs_dplan": dplan, "max_plan": pmax, "ms": ms,
-           "plain_ms": plain_ms,
-           "tolerance": {"pot_atol": K1_POT_ATOL,
-                         "plan_rtol": K1_PLAN_RTOL}}
-    emit(rec)
+    emit({"phase": "k1_sinkhorn", "shape": [B, S, D], "seed": seed,
+          "iters": SINKHORN_ITERS, "max_abs_df": df, "max_abs_dg": dg,
+          "max_abs_dplan": dplan, "max_plan": pmax, "ms": ms,
+          "all_ms": all_ms, "ms_per_iteration": ms / SINKHORN_ITERS,
+          "plain_ms": plain_ms, "repeat_bit_identical": identical,
+          "cluster_size": lay["cluster_size"],
+          "max_active_clusters": lay["max_active_clusters"],
+          "waves": lay["waves"], "rows_in_smem": lay["rows_in_smem"],
+          "n_res": lay["n_res"], "m_in_smem": lay["m_in_smem"],
+          "smem_bytes_per_block": lay["smem_bytes"],
+          "tolerance": {"pot_atol": K1_POT_ATOL,
+                        "plan_rtol": K1_PLAN_RTOL}})
     require(all(np.isfinite([df, dg, dplan])), "k1 produced non-finite")
     require(df <= K1_POT_ATOL and dg <= K1_POT_ATOL,
-            f"k1 potentials differ from plain: {df}, {dg}")
+            f"k1 potentials differ from plain at {[B, S, D]}: {df}, {dg}")
     require(dplan <= K1_PLAN_RTOL * pmax, f"k1 plan differs: {dplan}")
-    return summary("sinkhorn_fused", "smart_crossover_tpu_torch/csrc/"
-                   "sinkhorn.cu",
-                   "smart_crossover_tpu/ops/sinkhorn_pallas.py:26",
-                   max(df, dg), ms, plain_ms, sinkhorn_work(*M.shape))
+    require(identical, "k1 repeat launch not bit-identical")
+    return max(df, dg), ms, plain_ms, sinkhorn_work(B, S, D)
+
+
+def phase_k1():
+    err, ms, plain_ms, work = k1_at(64, 256, 256, 0, 5, 3)
+    err7, ms7, plain7, work7 = k1_at(16, 784, 784, 1, 5, 2)
+    out = summary("sinkhorn_fused", "smart_crossover_tpu_torch/csrc/"
+                  "sinkhorn.cu",
+                  "smart_crossover_tpu/ops/sinkhorn_pallas.py:26",
+                  max(err, err7), ms, plain_ms, work)
+    out.update(ms_784=ms7, plain_ms_784=plain7, bound_ms_784=bound(*work7)[0])
+    return out
 
 
 def sinkhorn_work(B, S, D):
-    """Per cell and half-iteration: (g - M) / reg, max, subtract, exp,
-    add; the plan 4 more.  M, s, d in and plan, f, g out, once."""
-    return (B * S * D * (12 * SINKHORN_ITERS + 4),
-            4 * (2 * B * S * D + 2 * B * (S + D)))
+    """Per cell and half-iteration: (g - M) / reg, max, subtract, add
+    around one exp; the plan 3 more and one exp.  M, s, d in and plan,
+    f, g out, once.  Returns (operations, bytes, exps)."""
+    cells = B * S * D
+    return (cells * (10 * SINKHORN_ITERS + 3),
+            4 * (2 * cells + 2 * B * (S + D)),
+            cells * (2 * SINKHORN_ITERS + 1))
 
 
 def k2_at(scx, B, S, D, seed, reps, n_plain):
@@ -684,16 +727,12 @@ def main() -> int:
     smi = phase_env(torch, _build)
     phase_build(_build)
 
-    import bench
-
-    s, d, M = to_cuda(*bench.make_batch(64, 256, 256, seed=0))
-    kernels = [phase_k1(scx, s, d, M), phase_k2(scx)]
+    kernels = [phase_k1(), phase_k2(scx)]
     counts = phase_main(scx, 64, 256, 256, seed=0, reps=5)
     counts7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_784"] = counts7[k["name"]]
-    kernels[0]["bound_ms_784"] = bound(*sinkhorn_work(16, 784, 784))[0]
 
     kernels += [phase_k3(512, 2048, seed=3), phase_k4(512, 2048, seed=3),
                 phase_k5(32, 64, 256, seed=5, iters=2000)]

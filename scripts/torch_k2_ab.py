@@ -25,25 +25,17 @@ import ctypes
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
-import numpy as np
+from kernel_ab import REPO, build_shared, median_ms
 
-REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 REG, SINKHORN_ITERS, MAX_PIVOTS = 0.005, 1000, 20000
 
 
 def build_old(src: Path) -> ctypes.CDLL:
-    from smart_crossover_tpu_torch import _build
-
-    out = REPO / "build" / "k2_ab" / "libk2_old.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                    str(out), str(src)], check=True)
-    lib = ctypes.CDLL(str(out))
+    lib = build_shared(src, REPO / "build" / "k2_ab" / "libk2_old.so")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # M, N_in, mask_in, parent_in, dep_in, w_in, Xv_in, N_work, mask_out,
     # parent_out, Xv_out, w_out, pot_out, stats, B, S, D, tol, max_pivots,
@@ -76,19 +68,6 @@ def run_old(lib, st, tol=1e-7, max_pivots=MAX_PIVOTS, refresh=128):
     if err:
         raise RuntimeError(f"old K2: CUDA error {err}")
     return parent, Xv, w, pot, mask, stats[:, 0].long(), stats[:, 1] != 0
-
-
-def median_ms(fn, reps):
-    import torch
-
-    times, out = [], None
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return out, float(np.median(times)), times
 
 
 def warm_state(B, S, D, seed):

@@ -36,8 +36,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # s, d, M, plan, f, g, log_s, log_d, B, S, D, reg, num_iters, stream
-    "scx_sinkhorn_fused": [_P] * 8 + [_I, _I, _I, _F, _I, _P],
+    # s, d, M, plan, f, g, B, S, D, reg, num_iters, C, n_res, stream
+    "scx_sinkhorn_fused": [_P] * 6 + [_I, _I, _I, _F, _I, _I, _I, _P],
+    # S, D, C, n_res -> bytes of dynamic shared memory
+    "scx_sinkhorn_smem_bytes": [_I] * 4,
+    # B, S, D, C, n_res -> resident clusters (or -error)
+    "scx_sinkhorn_max_clusters": [_I] * 5,
     # M, N_in, mask_in, parent_in, dep_in, w_in, Xv_in, N_glob, mask_glob,
     # mask_out, parent_out, Xv_out, w_out, pot_out, stats,
     # B, S, D, C, n_smem, mask_smem, tol, max_pivots, refresh, stream

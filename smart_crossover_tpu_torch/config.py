@@ -17,6 +17,18 @@ import torch
 
 HOST_FLOAT = np.float64
 
+# Hopper: the most shared memory one block may use, static and dynamic,
+# and the SM count of an H100 SXM (the kernels' cluster plans assume it
+# where no card is asked)
+SMEM_PER_BLOCK = 232_448
+SMS = 132
+
+
+def split_rows(n: int, C: int):
+    """Row ranges of a cluster's C ranks: rank q owns [q*n//C, (q+1)*n//C)
+    (the kernels' ``lo_row``)."""
+    return [(q * n // C, (q + 1) * n // C) for q in range(C)]
+
 
 def resolve_device(device=None, like=None) -> torch.device:
     """``device`` if given, else the device of the tensor ``like``, else

@@ -37,6 +37,7 @@ import math
 import torch
 
 from smart_crossover_tpu_torch import _build
+from smart_crossover_tpu_torch.config import SMEM_PER_BLOCK, SMS, split_rows
 from smart_crossover_tpu_torch.ops.transport_simplex_anc import (
     _tree_cells,
     build_ancestor_matrix,
@@ -45,11 +46,8 @@ from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
     build_parent_from_mask,
 )
 
-# Hopper: the most shared memory one block may use, static and dynamic
-SMEM_PER_BLOCK = 232_448
 _STATIC_SMEM = 1024      # the kernel's static shared memory, at most
 _MAX_CLUSTER = 8         # the portable thread-block cluster size
-_SMS = 132               # H100 SXM; the wrapper reads the card's own count
 
 # plan of the last kernel launch, with the card's answer to how many of
 # its clusters can be resident at once (read by chip_smoke.py)
@@ -59,11 +57,6 @@ _MAX_ACTIVE: dict = {}
 
 def _words(n: int) -> int:
     return (n + 31) // 32
-
-
-def _split(n: int, C: int):
-    """Row ranges of the C ranks: rank q owns [q*n//C, (q+1)*n//C)."""
-    return [(q * n // C, (q + 1) * n // C) for q in range(C)]
 
 
 def mega_smem_bytes(S: int, D: int, C: int, n_in_smem: bool,
@@ -94,7 +87,7 @@ def max_kernel_nodes(smem_budget: int = SMEM_PER_BLOCK) -> int:
 
 
 def cluster_plan(B: int, S: int, D: int, smem_budget: int = SMEM_PER_BLOCK,
-                 sms: int = _SMS) -> dict:
+                 sms: int = SMS) -> dict:
     """How the kernel lays out a (B, S, D) batch: C blocks per instance.
 
     C is the largest power of two <= 8 with B*C <= sms (1 if B > sms/2),
@@ -123,8 +116,8 @@ def cluster_plan(B: int, S: int, D: int, smem_budget: int = SMEM_PER_BLOCK,
         C = max(C, fit[0])
     n_smem = fits(C, True, True)
     mask_smem = n_smem or fits(C, False, True)
-    return {"cluster_size": C, "m_ranges": _split(S, C),
-            "n_ranges": _split(V, C), "words_n": _words(V),
+    return {"cluster_size": C, "m_ranges": split_rows(S, C),
+            "n_ranges": split_rows(V, C), "words_n": _words(V),
             "words_d": _words(D),
             "smem_bytes": mega_smem_bytes(S, D, C, n_smem, mask_smem),
             "n_in_smem": n_smem, "mask_in_smem": mask_smem}

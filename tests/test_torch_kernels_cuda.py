@@ -65,11 +65,101 @@ def test_sinkhorn_kernel_matches_plain(cuda, shape):
     assert (plan - pp).abs().max().item() <= 1e-3 * pp.abs().max().item()
 
 
+def _k1_inputs(B, S, D, seed):
+    s, d, M = (torch.tensor(a, dtype=torch.float32, device="cuda")
+               for a in _batch(B, S, D, seed))
+    return s, d, (M / (0.05 * M.amax((1, 2)))[:, None, None]).contiguous()
+
+
+def _k1_close(k, p):
+    assert (k[1] - p[1]).abs().max().item() <= 1e-3
+    assert (k[2] - p[2]).abs().max().item() <= 1e-3
+    assert (k[0] - p[0]).abs().max().item() <= 1e-3 * p[0].abs().max().item()
+
+
+# (shape, cluster size forced or None for the plan's, resident rows per rank
+# forced below a rank's rows): C = 1 (B = 140 does not fit in pairs), 2, 7,
+# 8, 16; rows partly in global memory; S, D not multiples of 32 (nor of 4)
+# and S != D; S < C (ranks with no rows); D > 1024 (rows read twice); B = 1
+@pytest.mark.parametrize("shape,C,n_res", [
+    ((140, 13, 29), 1, None),
+    ((64, 64, 100), 2, None),
+    ((16, 40, 61), 8, None),
+    ((16, 40, 64), 7, None),
+    ((4, 33, 67), 16, None),
+    ((3, 37, 300), 4, 3),
+    ((2, 70, 90), 8, 1),
+    ((2, 5, 70), 16, None),
+    ((2, 24, 1100), 2, 5),
+    ((1, 50, 31), None, None),
+])
+def test_sinkhorn_kernel_layouts_match_plain(cuda, shape, C, n_res):
+    from smart_crossover_tpu_torch.ops import sinkhorn_fused as sf
+
+    B, S, D = shape
+    s, d, Mn = _k1_inputs(B, S, D, seed=51)
+    budget = sf.SMEM_PER_BLOCK if n_res is None else \
+        sf.sinkhorn_smem_bytes(S, D, C, n_res)
+    n0 = _build.kernel_launch_counts()["sinkhorn_fused"]
+    k = sinkhorn_plan_fused(s, d, Mn, 1.0, 200, smem_budget=budget,
+                            cluster_size=C)
+    torch.cuda.synchronize()
+    assert _build.kernel_launch_counts()["sinkhorn_fused"] == n0 + 1
+    plan = dict(sf.LAST_LAUNCH)
+    if C is not None:
+        assert plan["cluster_size"] == C
+    rows = -(-S // plan["cluster_size"])
+    assert plan["n_res"] == (rows if n_res is None else n_res)
+    _k1_close(k, sinkhorn_plan_fused_plain(s, d, Mn, 1.0, 200))
+
+
+def test_sinkhorn_layouts_agree_bit_for_bit(cuda):
+    """At one C, any residency runs the same arithmetic in the same
+    order: identical results."""
+    from smart_crossover_tpu_torch.ops import sinkhorn_fused as sf
+
+    s, d, Mn = _k1_inputs(3, 45, 77, seed=52)
+    ref = sinkhorn_plan_fused(s, d, Mn, 1.0, 150, cluster_size=4)
+    for n_res in (5, 2, 0):
+        budget = sf.sinkhorn_smem_bytes(45, 77, 4, n_res)
+        out = sinkhorn_plan_fused(s, d, Mn, 1.0, 150, cluster_size=4,
+                                  smem_budget=budget)
+        assert all(torch.equal(a, q) for a, q in zip(out, ref))
+
+
+def test_sinkhorn_plan_on_card(cuda):
+    """The plan the wrapper takes from the card's resident clusters: C = 2
+    at 64 x 256^2 (all of M in shared memory, one wave), C = 1 for a batch
+    that pairs of blocks would run in more waves."""
+    from smart_crossover_tpu_torch.ops import sinkhorn_fused as sf
+
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("plan expectations are for a 132-SM card")
+    sinkhorn_plan_fused(*_k1_inputs(64, 256, 256, seed=53), 1.0, 2)
+    plan = dict(sf.LAST_LAUNCH)
+    assert plan["cluster_size"] == 2 and plan["m_in_smem"] == 1.0
+    assert plan["waves"] == 1 and plan["max_active_clusters"] >= 64
+    sinkhorn_plan_fused(*_k1_inputs(140, 13, 29, seed=53), 1.0, 2)
+    assert sf.LAST_LAUNCH["cluster_size"] == 1
+
+
 def test_sinkhorn_kernel_rejects_bad_input(cuda):
     s, d, M = (torch.tensor(a, dtype=torch.float64, device=cuda)
                for a in _batch(1, 8, 8, seed=42))
     with pytest.raises(ValueError, match="float32"):
         sinkhorn_plan_fused(s, d, M, 1.0, 3)
+
+
+def test_sinkhorn_kernel_raises_without_a_plan(cuda):
+    """No layout fits, or the card refuses the cluster size: the wrapper
+    raises and runs nothing else."""
+    s, d, Mn = _k1_inputs(1, 4, 300, seed=54)
+    n0 = _build.kernel_launch_counts()["sinkhorn_fused"]
+    with pytest.raises(ValueError, match="no cluster layout"):
+        sinkhorn_plan_fused(s, d, Mn, 1.0, 3, smem_budget=1024)
+    with pytest.raises(ValueError, match="no cluster layout"):
+        sinkhorn_plan_fused(s, d, Mn, 1.0, 3, cluster_size=17)
+    assert _build.kernel_launch_counts()["sinkhorn_fused"] == n0
 
 
 def _nw_state(B, S, D, seed):
@@ -167,6 +257,10 @@ def test_kernels_are_deterministic(cuda):
     a = sinkhorn_plan_fused(s, d, Mn, 1.0, 200)
     b = sinkhorn_plan_fused(s, d, Mn, 1.0, 200)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for C in (2, 8, 16):                       # a cluster of C per instance
+        a = sinkhorn_plan_fused(s, d, Mn, 1.0, 200, cluster_size=C)
+        b = sinkhorn_plan_fused(s, d, Mn, 1.0, 200, cluster_size=C)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
     X0 = batched_tnet(s, d, M, reg=0.005, sinkhorn_iters=200)[0]
     st = mega_setup(X0, boruvka_bipartite_mst((X0 > 1e-12).float()), M)
     a = transport_simplex_mega(st)
