@@ -23,8 +23,13 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           launched, stage split, certified instances/s;
   k3, k4  the PDHG and Halpern chunk kernels against their plain versions
           at 512 x 2048, one 64-iteration chunk, with the median ms of each;
+          K3 with its cluster plan (cluster size, resident clusters, waves,
+          rows of A in shared memory, shared memory per block, combine) and
+          ms per iteration;
   k5      the batched PDHG kernel against its plain version at 32 x 64 x
-          256 (2000 iterations, and 50 for a tight check), median ms;
+          256 (2000 iterations) and 64 x 256 x 512 (4000 iterations), each
+          also at 50 iterations for a tight check, median ms, ms per
+          iteration and the cluster plan;
   main_lp_single_512x2048
           pdhg_solve in both modes on the card, then the host primal simplex
           from the warm start to an exact vertex, equal to HiGHS to 1e-8;
@@ -484,6 +489,8 @@ def phase_k3(m, n, seed):
     from smart_crossover_tpu_torch.ops.pdhg_chunk import (
         pdhg_chunk, pdhg_chunk_plain)
 
+    from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
+
     A, b, c, l, u, eq, x, y, Ax, opnorm = pdhg_start(m, n, seed)
     z = torch.zeros_like
     # a mid-run state: 256 plain iterations from the start
@@ -491,6 +498,7 @@ def phase_k3(m, n, seed):
                           0.9 / opnorm, 1.0, 0, opnorm, chunk=256)
     args = (A, b, c, l, u, eq, *st, 1.0, 256, opnorm)
     k, ms, _ = sync_time(lambda: pdhg_chunk(*args), 20)
+    lay = dict(pc.LAST_LAUNCH["pdhg_chunk"])
     p, plain_ms, _ = sync_time(lambda: pdhg_chunk_plain(*args), 3)
     again = pdhg_chunk(*args)
     torch.cuda.synchronize()
@@ -504,7 +512,8 @@ def phase_k3(m, n, seed):
           "k": 256, **err, **acc,
           "max_abs_dx_dy_dAx": abs_err, "repeat_bit_identical": identical,
           "eta_kernel": k[6].item(), "eta_plain": p[6].item(),
-          "ms": ms, "plain_ms": plain_ms,
+          "ms": ms, "ms_per_iteration": ms / 64, "plain_ms": plain_ms,
+          **cluster_record(lay),
           "tolerance": {"rel": PDHG_RTOL, "eta_rel": ETA_RTOL,
                         "f64_ratio": F64_RATIO}})
     require(all(np.isfinite(list(err.values()))), "k3 produced non-finite")
@@ -513,7 +522,7 @@ def phase_k3(m, n, seed):
     require(not worse, f"k3 less accurate than plain on {worse}: {acc}")
     require(identical, "k3 repeat launch not bit-identical")
     return summary("pdhg_chunk", "smart_crossover_tpu_torch/csrc/"
-                   "pdhg_chunk.cu",
+                   "pdhg_cluster.cu",
                    "smart_crossover_tpu/ops/pdhg_pallas.py:31", abs_err, ms,
                    plain_ms, chunk_work(m, n, 8 * m + 7 * n))
 
@@ -559,9 +568,24 @@ def phase_k4(m, n, seed):
                    plain_ms, chunk_work(m, n, 8 * m + 6 * n))
 
 
-def phase_k5(B, m, n, seed, iters):
+def cluster_record(lay):
+    """The cluster plan of a PDHG kernel's launch, for its phase record."""
+    return {"cluster_size": lay["cluster_size"],
+            "max_active_clusters": lay["max_active_clusters"],
+            "waves": lay["waves"], "rows_in_smem": lay["rows_in_smem"],
+            "n_res": lay["n_res"], "a_in_smem": lay["a_in_smem"],
+            "smem_bytes_per_block": lay["smem_bytes"],
+            "scatter_combine": lay["scatter"]}
+
+
+def k5_at(B, m, n, seed, iters, reps, plain_reps):
+    """The fleet kernel on chip_smoke's fleet (B, m, n, seed) against its
+    plain version: 50 iterations against the float32 and float64 plain
+    runs, `iters` iterations on the step-weighted averages.  Returns the
+    50-iteration error and the kernel's and plain ms at `iters`."""
     import torch
 
+    from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
     from smart_crossover_tpu_torch.solvers.pdhg_batched import (
         _opnorms, pdhg_batched_cuda, pdhg_fixed_batched_plain)
 
@@ -577,10 +601,11 @@ def phase_k5(B, m, n, seed, iters):
     acc, worse = f64_check(pdhg_fixed_batched_plain,
                            (A, b, c, l, u, opn, x0, y0, 50), short_k,
                            short_p, ((0, "x_50"), (1, "y_50")))
-    k, ms, _ = sync_time(lambda: pdhg_batched_cuda(A, b, c, l, u, opn,
-                                                   iters), 5)
+    k, ms, all_ms = sync_time(lambda: pdhg_batched_cuda(A, b, c, l, u, opn,
+                                                        iters), reps)
+    lay = dict(pc.LAST_LAUNCH["pdhg_batched"])
     p, plain_ms, _ = sync_time(lambda: pdhg_fixed_batched_plain(
-        A, b, c, l, u, opn, x0, y0, iters), 2)
+        A, b, c, l, u, opn, x0, y0, iters), plain_reps)
     again = pdhg_batched_cuda(A, b, c, l, u, opn, iters)
     torch.cuda.synchronize()
     long = {f"rel_d{nm}_{iters}": rel_diff(a, q)
@@ -588,9 +613,11 @@ def phase_k5(B, m, n, seed, iters):
     abs_err = max((a - q).abs().max().item()
                   for a, q in zip(short_k, short_p))
     identical = all(torch.equal(a, q) for a, q in zip(k, again))
-    emit({"phase": "k5_pdhg_batched", "shape": [B, m, n], "iters": iters,
-          **short, **long, **acc, "max_abs_err_50": abs_err,
-          "repeat_bit_identical": identical, "ms": ms, "plain_ms": plain_ms,
+    emit({"phase": "k5_pdhg_batched", "shape": [B, m, n], "seed": seed,
+          "iters": iters, **short, **long, **acc,
+          "max_abs_err_50": abs_err, "repeat_bit_identical": identical,
+          "ms": ms, "all_ms": all_ms, "ms_per_iteration": ms / iters,
+          "plain_ms": plain_ms, **cluster_record(lay),
           "tolerance": {"rel_50": PDHG_RTOL, "f64_ratio": F64_RATIO,
                         f"rel_avg_{iters}": K5_LONG_AVG_RTOL}})
     vals = list(short.values()) + list(long.values())
@@ -602,10 +629,19 @@ def phase_k5(B, m, n, seed, iters):
             and long[f"rel_dy_avg_{iters}"] <= K5_LONG_AVG_RTOL,
             f"k5 averages differ from plain at {iters}: {long}")
     require(identical, "k5 repeat launch not bit-identical")
-    return summary("pdhg_batched", "smart_crossover_tpu_torch/csrc/"
-                   "pdhg_batched.cu",
-                   "smart_crossover_tpu/solvers/pdhg_batched.py:100",
-                   abs_err, ms, plain_ms, fleet_work(B, m, n, iters))
+    return abs_err, ms, plain_ms
+
+
+def phase_k5():
+    err, ms, plain_ms = k5_at(32, 64, 256, 5, 2000, 5, 2)
+    err_b, ms_b, plain_b = k5_at(64, 256, 512, 6, 4000, 3, 1)
+    out = summary("pdhg_batched", "smart_crossover_tpu_torch/csrc/"
+                  "pdhg_cluster.cu",
+                  "smart_crossover_tpu/solvers/pdhg_batched.py:100",
+                  max(err, err_b), ms, plain_ms,
+                  fleet_work(32, 64, 256, 2000))
+    out.update(ms_64x256x512=ms_b, plain_ms_64x256x512=plain_b)
+    return out
 
 
 def fleet_work(B, m, n, iters):
@@ -735,7 +771,7 @@ def main() -> int:
         k["launches_784"] = counts7[k["name"]]
 
     kernels += [phase_k3(512, 2048, seed=3), phase_k4(512, 2048, seed=3),
-                phase_k5(32, 64, 256, seed=5, iters=2000)]
+                phase_k5()]
     single = phase_lp_single(scx, 512, 2048, seed=7)
     fleet, _ = phase_lp_fleet(scx, 32, 64, 256, seed=5, reps=5)
     fleet_big, big_ms = phase_lp_fleet(scx, 64, 256, 512, seed=6, reps=3)

@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("sinkhorn.cu", "transport_simplex_mega.cu", "pdhg_chunk.cu",
-           "pdhg_batched.cu")
+           "pdhg_cluster.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "smart_crossover_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -50,14 +50,19 @@ _SIGNATURES = {
     "scx_transport_simplex_mega_smem_bytes": [_I] * 5,
     # B, S, D, C, n_smem, mask_smem -> resident clusters (or -error)
     "scx_transport_simplex_mega_max_clusters": [_I] * 6,
-    # A, b, c, l, u, eq, xbuf, ybuf, axbuf, xs, ys, scal_in, scal_out, part,
-    # x_out, y_out, ax_out, m, n, chunk, stream
-    "scx_pdhg_chunk": [_P] * 17 + [_I, _I, _I, _P],
+    # A, b, c, l, u, eq, x, y, ax, xs, ys, scal_in, scal_out, x_out, y_out,
+    # ax_out, m, n, chunk, C, n_res, scatter, stream
+    "scx_pdhg_chunk": [_P] * 16 + [_I] * 6 + [_P],
     # A, b, c, l, u, eq, x, y, ax, xa, ya, axa, xt, scal_in, scal_out,
     # m, n, chunk, stream
     "scx_halpern_chunk": [_P] * 15 + [_I, _I, _I, _P],
-    # A, b, c, l, u, opnorms, x, y, x_avg, y_avg, B, m, n, iters, stream
-    "scx_pdhg_batched": [_P] * 10 + [_I, _I, _I, _I, _P],
+    # A, b, c, l, u, opnorms, x, y, x_avg, y_avg, B, m, n, iters, C, n_res,
+    # scatter, stream
+    "scx_pdhg_batched": [_P] * 10 + [_I] * 7 + [_P],
+    # m, n, C, n_res -> bytes of dynamic shared memory
+    "scx_pdhg_cluster_smem_bytes": [_I] * 4,
+    # B, m, n, C, n_res -> resident clusters (or -error)
+    "scx_pdhg_cluster_max_clusters": [_I] * 5,
 }
 
 _lib = None

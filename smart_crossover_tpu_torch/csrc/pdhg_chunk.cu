@@ -1,18 +1,17 @@
-// Chunks of single-instance PDHG on a dense A, for Hopper (sm_90a).
+// Chunks of reflected-Halpern PDHG on a dense A, for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of smart_crossover_tpu/ops/pdhg_pallas.py:
-//   _pdhg_chunk_kernel     chunk iterations of adaptive-step PDLP PDHG
-//                          (solvers/pdhg.py::_pdhg_core.one_iter), with the
-//                          step-weighted sums xs, ys, wsum;
-//   _halpern_chunk_kernel  chunk iterations of reflected-Halpern PDHG with a
-//                          fixed step (solvers/pdhg.py::_pdhg_core_halpern).
-// Both run one iteration as: a column phase (A'y, then the clipped primal
-// step), a row phase (A x, then the dual step), and the PDLP step rule.
+// Replaces the TPU kernel smart_crossover_tpu/ops/pdhg_pallas.py::
+// _halpern_chunk_kernel: chunk iterations of reflected-Halpern PDHG with a
+// fixed step (solvers/pdhg.py::_pdhg_core_halpern), one iteration as a
+// column phase (A'y, then the clipped primal step and the Halpern update of
+// x), a row phase (A x_t, the dual step, the Halpern update of y and A x).
+// (The adaptive chunk kernel it once shared this source with now runs on
+// thread-block clusters, csrc/pdhg_cluster.cu.)
 //
 // Bound: an iteration reads A twice, and A (512 x 2048 f32 = 4 MB at the
 // shapes the reference ran) sits in the 50 MB L2 for the whole chunk, so
 // the loop is bound by L2 bandwidth and by the two grid-wide barriers an
-// iteration needs (x_c must be complete before A x_c, y before A'y).  The
+// iteration needs (x_t must be complete before A x_t, y before A'y).  The
 // TPU kernel pinned A in VMEM; here one persistent cooperative launch per
 // chunk keeps A in L2 and replaces the ~20 launches of each plain
 // iteration by two cooperative_groups grid syncs:
@@ -21,18 +20,10 @@
 //                  and the 8 partial sums meet in shared memory;
 //   row phase    - one warp per row, lanes along the row.
 // A is read in place (row-major, one copy: the TPU needed a second,
-// relaid copy only for Mosaic).  The adaptive kernel double-buffers x, y
-// and A x so that a rejected trial step costs no copy: the accept decision
-// flips which buffer is current.  Each block writes three partial sums
-// (dy.(Ax_c - Ax), dx.dx, dy.dy) and every block adds all of them in the
-// same fixed order, so all blocks take the same decision and repeated
-// launches are bit-identical (no float atomics).  Data that other blocks
-// wrote inside the launch is read with ld.global.cg (L2, not the SM's
-// L1, which other SMs' stores do not update).
-// The step schedule is the Pallas body's: k^-p as expf(-p * logf(k)).  It
-// differs from the plain version's powf by a few float32 ulps, far below the
-// ~1e-3 relative rounding of the cancelling sum dy.(A x_c - A x) that sets
-// the kernel-vs-plain tolerance.
+// relaid copy only for Mosaic).  Data that other blocks wrote inside the
+// launch is read with ld.global.cg (L2, not the SM's L1, which other SMs'
+// stores do not update).  No sum crosses blocks, so repeated launches are
+// bit-identical.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -44,7 +35,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 32;          // columns per tile in the column phase
-constexpr int kMaxGrid = 1024;     // partial-sum slots the caller allocates
+constexpr int kMaxGrid = 1024;     // the largest grid launched
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -79,150 +70,6 @@ __device__ __forceinline__ float row_av(const float* __restrict__ Ar,
 #pragma unroll 4
   for (int j = lane; j < n; j += 32) acc += Ar[j] * __ldcg(v + j);
   return warp_sum(acc);
-}
-
-__global__ void __launch_bounds__(kThreads)
-pdhg_chunk_kernel(const float* __restrict__ A, const float* __restrict__ b,
-                  const float* __restrict__ c, const float* __restrict__ l,
-                  const float* __restrict__ u, const float* __restrict__ eq,
-                  float* xbuf, float* ybuf, float* axbuf, float* xs, float* ys,
-                  const float* __restrict__ scal_in, float* scal_out,
-                  float* part, float* x_out, float* y_out, float* ax_out,
-                  int m, int n, int chunk) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ float red[kWarps][kTile + 1];
-  __shared__ float sred[kWarps][3];
-  __shared__ float dec[2];        // step weight w, next eta
-  __shared__ int dec_accept;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int ntiles = (n + kTile - 1) / kTile;
-  const int G = gridDim.x;
-  float wsum = scal_in[0], eta = scal_in[1];
-  const float omega = scal_in[2], opnorm = scal_in[4];
-  float k = scal_in[3];
-  int cur = 0;
-
-  for (int it = 0; it < chunk; ++it) {
-    const float tau = eta / omega, sigma = eta * omega;
-    const float* x = xbuf + cur * n;
-    float* xc = xbuf + (cur ^ 1) * n;
-    const float* y = ybuf + cur * m;
-    float* yc = ybuf + (cur ^ 1) * m;
-    const float* ax = axbuf + cur * m;
-    float* axc = axbuf + (cur ^ 1) * m;
-    float p_dxx = 0.0f, p_curv = 0.0f, p_dyy = 0.0f;
-
-    // column phase: x_c = clip(x - tau (c - A'y), l, u)
-    for (int t = blockIdx.x; t < ntiles; t += G) {
-      int j = t * kTile + lane;
-      float aty = tile_aty(A, y, m, n, j, red);
-      if (w == 0 && j < n) {
-        float xj = __ldcg(x + j);
-        float v = fminf(fmaxf(xj - tau * (c[j] - aty), l[j]), u[j]);
-        __stcg(xc + j, v);
-        float dx = v - xj;
-        p_dxx += dx * dx;
-      }
-    }
-    grid.sync();
-
-    // row phase: A x_c, then y_c with '<' rows clamped to <= 0
-    for (int i = blockIdx.x * kWarps + w; i < m; i += G * kWarps) {
-      float a = row_av(A + (size_t)i * n, xc, n);
-      if (lane == 0) {
-        float axo = __ldcg(ax + i), yo = __ldcg(y + i);
-        float yt = yo + sigma * (b[i] - (2.0f * a - axo));
-        float yn = eq[i] > 0.0f ? yt : fminf(yt, 0.0f);
-        __stcg(axc + i, a);
-        __stcg(yc + i, yn);
-        float dy = yn - yo;
-        p_curv += dy * (a - axo);
-        p_dyy += dy * dy;
-      }
-    }
-    p_curv = warp_sum(p_curv);
-    p_dxx = warp_sum(p_dxx);
-    p_dyy = warp_sum(p_dyy);
-    if (lane == 0) {
-      sred[w][0] = p_curv;
-      sred[w][1] = p_dxx;
-      sred[w][2] = p_dyy;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-      for (int q = 0; q < kWarps; ++q) {
-        s0 += sred[q][0];
-        s1 += sred[q][1];
-        s2 += sred[q][2];
-      }
-      __stcg(part + blockIdx.x * 4 + 0, s0);
-      __stcg(part + blockIdx.x * 4 + 1, s1);
-      __stcg(part + blockIdx.x * 4 + 2, s2);
-    }
-    grid.sync();
-
-    // the accept decision and the step rule, identical in every block
-    if (w == 0) {
-      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-      for (int g = lane; g < G; g += 32) {
-        s0 += __ldcg(part + g * 4 + 0);
-        s1 += __ldcg(part + g * 4 + 1);
-        s2 += __ldcg(part + g * 4 + 2);
-      }
-      s0 = warp_sum(s0);
-      s1 = warp_sum(s1);
-      s2 = warp_sum(s2);
-      if (lane == 0) {
-        float curv = fabsf(s0);
-        float nz = omega * s1 + s2 / omega;
-        float eta_bar = curv > 0.0f ? nz / (2.0f * curv) : 1e10f / opnorm;
-        int accept = eta <= eta_bar;
-        float logk = logf(k + 2.0f);
-        float en = fminf((1.0f - expf(-0.3f * logk)) * eta_bar,
-                         (1.0f + expf(-0.6f * logk)) * eta);
-        en = fminf(fmaxf(en, 1e-10f / opnorm), 1e10f / opnorm);
-        dec[0] = accept ? eta : 0.0f;
-        dec[1] = en;
-        dec_accept = accept;
-      }
-    }
-    __syncthreads();
-    const float wt = dec[0];
-    cur ^= dec_accept;
-    wsum += wt;
-    eta = dec[1];
-    k += 1.0f;
-
-    // running sums over the owned columns and rows
-    const float* xn = xbuf + cur * n;
-    const float* yn = ybuf + cur * m;
-    for (int t = blockIdx.x; t < ntiles; t += G) {
-      int j = t * kTile + lane;
-      if (w == 0 && j < n) xs[j] += wt * __ldcg(xn + j);
-    }
-    for (int i = blockIdx.x * kWarps + w; i < m; i += G * kWarps)
-      if (lane == 0) ys[i] += wt * __ldcg(yn + i);
-    __syncthreads();
-  }
-
-  for (int t = blockIdx.x; t < ntiles; t += G) {
-    int j = t * kTile + lane;
-    if (w == 0 && j < n) x_out[j] = __ldcg(xbuf + cur * n + j);
-  }
-  for (int i = blockIdx.x * kWarps + w; i < m; i += G * kWarps) {
-    if (lane == 0) {
-      y_out[i] = __ldcg(ybuf + cur * m + i);
-      ax_out[i] = __ldcg(axbuf + cur * m + i);
-    }
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    scal_out[0] = wsum;
-    scal_out[1] = eta;
-    scal_out[2] = omega;
-    scal_out[3] = k;
-    scal_out[4] = opnorm;
-  }
 }
 
 // x, y, ax are updated in place; xt is scratch for T(z)'s primal part.
@@ -299,31 +146,6 @@ cudaError_t grid_for(const void* fn, int m, int n, int* grid) {
 }
 
 }  // namespace
-
-// One cooperative launch of `chunk` adaptive iterations on `stream`.
-// xbuf (2n), ybuf (2m), axbuf (2m): slot 0 holds the current x, y, A x on
-// entry.  xs, ys are updated in place.  part holds kMaxGrid * 4 floats.
-// scal_in / scal_out: [wsum, eta, omega, k, opnorm].  Returns the launch's
-// CUDA error code (a refused launch is never retried on a smaller grid).
-extern "C" int scx_pdhg_chunk(const float* A, const float* b, const float* c,
-                              const float* l, const float* u, const float* eq,
-                              float* xbuf, float* ybuf, float* axbuf,
-                              float* xs, float* ys, const float* scal_in,
-                              float* scal_out, float* part, float* x_out,
-                              float* y_out, float* ax_out, int m, int n,
-                              int chunk, void* stream_ptr) {
-  int grid = 0;
-  cudaError_t e = grid_for((const void*)pdhg_chunk_kernel, m, n, &grid);
-  if (e != cudaSuccess) return (int)e;
-  void* args[] = {&A, &b, &c, &l, &u, &eq, &xbuf, &ybuf, &axbuf, &xs, &ys,
-                  &scal_in, &scal_out, &part, &x_out, &y_out, &ax_out,
-                  &m, &n, &chunk};
-  e = cudaLaunchCooperativeKernel((const void*)pdhg_chunk_kernel, dim3(grid),
-                                  dim3(kThreads), args, 0,
-                                  static_cast<cudaStream_t>(stream_ptr));
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
 
 // One cooperative launch of `chunk` Halpern iterations; x, y, ax in place,
 // xt (n) scratch.  scal_in / scal_out: [omega, k, step].

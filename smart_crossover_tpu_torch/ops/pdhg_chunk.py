@@ -15,22 +15,25 @@ keyword: 1-D vectors and the scalar state.
   the last restart and sets the Halpern weight (k + 1) / (k + 2).  The
   anchors xa, ya, Axa are read, never written.
 
-On the H100 both run as one cooperative launch per chunk
+On the H100 ``pdhg_chunk`` runs as one cluster launch per chunk
+(``csrc/pdhg_cluster.cu``, shared with the fleet kernel): a thread-block
+cluster of up to 16 blocks holds the rows of A in shared memory for the
+chunk, with two cluster barriers per iteration (three with the scatter
+combine); ``ops/pdhg_cluster.py::pdhg_cluster_plan`` picks the layout.
+``halpern_chunk`` runs as one cooperative launch per chunk
 (``csrc/pdhg_chunk.cu``): A stays in L2 for the chunk, and the grid syncs
-twice per iteration (after x_c, after y_c).  The TPU's (8, 128) padding and
-VMEM gate (``pad_lp_for_pallas``, ``pdhg_pallas_ok``) have no counterpart:
-the kernels take any (m, n).  A CUDA tensor launches the kernel or raises;
-a CPU tensor runs the plain version.
+twice per iteration.  The TPU's (8, 128) padding and VMEM gate
+(``pad_lp_for_pallas``, ``pdhg_pallas_ok``) have no counterpart: the
+kernels take any (m, n).  A CUDA tensor launches the kernel or raises; a
+CPU tensor runs the plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from smart_crossover_tpu_torch import _build
-
-#: partial-sum slots of the adaptive kernel: kMaxGrid in csrc/pdhg_chunk.cu,
-#: which caps its grid
-_MAX_GRID = 1024
+from smart_crossover_tpu_torch.config import SMEM_PER_BLOCK
+from smart_crossover_tpu_torch.ops.pdhg_cluster import cluster_plan_on_card
 
 
 def _as_scalar(v, like: torch.Tensor) -> torch.Tensor:
@@ -124,31 +127,27 @@ def _vectors(fn, A, eq, **vecs):
 
 
 def _pdhg_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xs, ys,
-                     wsum, eta, omega, k, opnorm, chunk):
+                     wsum, eta, omega, k, opnorm, chunk, smem_budget,
+                     cluster_size):
     m, n, eq = _vectors("pdhg_chunk", A, eq, b=b, c=c, l=l, u=u, x=x, y=y,
                         Ax=Ax, xs=xs, ys=ys)
-    lib = _build.library()
-    xbuf = torch.empty(2, n, dtype=A.dtype, device=A.device)
-    ybuf = torch.empty(2, m, dtype=A.dtype, device=A.device)
-    axbuf = torch.empty(2, m, dtype=A.dtype, device=A.device)
-    xbuf[0] = x
-    ybuf[0] = y
-    axbuf[0] = Ax
+    lib, plan = cluster_plan_on_card("pdhg_chunk", A, 1, m, n, smem_budget,
+                                     cluster_size)
     xs_o, ys_o = xs.clone(), ys.clone()
     scal_in = _scalars(A, wsum, eta, omega, k, opnorm)
     scal_out = torch.zeros_like(scal_in)
-    part = torch.zeros(_MAX_GRID * 4, dtype=A.dtype, device=A.device)
     x_o, y_o, ax_o = torch.empty_like(x), torch.empty_like(y), \
         torch.empty_like(Ax)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
         err = lib.scx_pdhg_chunk(
             A.data_ptr(), b.data_ptr(), c.data_ptr(), l.data_ptr(),
-            u.data_ptr(), eq.data_ptr(), xbuf.data_ptr(), ybuf.data_ptr(),
-            axbuf.data_ptr(), xs_o.data_ptr(), ys_o.data_ptr(),
-            scal_in.data_ptr(), scal_out.data_ptr(), part.data_ptr(),
-            x_o.data_ptr(), y_o.data_ptr(), ax_o.data_ptr(), m, n,
-            int(chunk), stream)
+            u.data_ptr(), eq.data_ptr(), x.data_ptr(), y.data_ptr(),
+            Ax.data_ptr(), xs_o.data_ptr(), ys_o.data_ptr(),
+            scal_in.data_ptr(), scal_out.data_ptr(), x_o.data_ptr(),
+            y_o.data_ptr(), ax_o.data_ptr(), m, n, int(chunk),
+            plan["cluster_size"], plan["n_res"], int(plan["scatter"]),
+            stream)
     _build.check(err, "scx_pdhg_chunk")
     _build.LAUNCHES["pdhg_chunk"] += 1
     return x_o, y_o, ax_o, xs_o, ys_o, scal_out[0], scal_out[1]
@@ -177,19 +176,25 @@ def _halpern_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,
 
 
 def pdhg_chunk(A, b, c, l, u, eq, x, y, Ax, xs, ys,
-               wsum, eta, omega, k, opnorm, chunk: int = 64):
+               wsum, eta, omega, k, opnorm, chunk: int = 64, *,
+               smem_budget: int = SMEM_PER_BLOCK,
+               cluster_size: int | None = None):
     """``chunk`` adaptive PDHG iterations.
 
     Args:
         A: (m, n); b, eq, y, Ax, ys: (m,); c, l, u, x, xs: (n,) tensors.
             eq is 1.0 (or True) on '=' rows.
         wsum, eta, omega, k, opnorm: scalars (numbers or 0-d tensors).
+        smem_budget, cluster_size: reach ``pdhg_cluster_plan`` (tests and
+            timing scripts force layouts with them); a layout that does
+            not fit raises.
 
     Returns (x, y, Ax, xs, ys, wsum, eta).
     """
     if A.is_cuda:
         return _pdhg_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xs, ys,
-                                wsum, eta, omega, k, opnorm, chunk)
+                                wsum, eta, omega, k, opnorm, chunk,
+                                smem_budget, cluster_size)
     if A.device.type != "cpu":
         raise ValueError(f"pdhg_chunk: no kernel for {A.device}")
     return pdhg_chunk_plain(A, b, c, l, u, eq, x, y, Ax, xs, ys,

@@ -72,7 +72,7 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
     """
     if engine != "mega":
         raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP 1.8: the parent, "
+            f"engine={engine!r} is not ported yet (ROADMAP 1.6b: the parent, "
             "anc, packed and mask engines); use engine='mega'")
     dev = resolve_device(device, M)
     M = to_device(M, dev)

@@ -8,9 +8,11 @@ Port of ``smart_crossover_tpu/solvers/pdhg_batched.py``.  Equality form
 * ``pdhg_fixed_batched_plain``: the JAX package's vmapped XLA oracle
   (``_pdhg_fixed_batched``) with the vmap written out as a batch dimension.
 * ``pdhg_dense_batched``: on a CUDA tensor one launch of the hand-written
-  kernel (``csrc/pdhg_batched.cu``, replacing the TPU kernel
-  ``_batched_pdhg_kernel``; one block per instance loops over every
-  iteration); on a CPU tensor the plain version.  The JAX package took the
+  kernel (``csrc/pdhg_cluster.cu``, replacing the TPU kernel
+  ``_batched_pdhg_kernel``; one thread-block cluster per instance holds
+  its A in shared memory and loops over every iteration,
+  ``ops/pdhg_cluster.py`` plans the layout); on a CPU tensor the plain
+  version.  The JAX package took the
   Pallas kernel only when asked (``use_pallas``, ``block_b``); the port
   picks the route by device and has neither argument, nor the TPU's VMEM
   gate ``batched_pdhg_pallas_ok``.
@@ -20,7 +22,9 @@ from __future__ import annotations
 import torch
 
 from smart_crossover_tpu_torch import _build
-from smart_crossover_tpu_torch.config import resolve_device, to_device
+from smart_crossover_tpu_torch.config import (
+    SMEM_PER_BLOCK, resolve_device, to_device)
+from smart_crossover_tpu_torch.ops.pdhg_cluster import cluster_plan_on_card
 
 
 def _opnorms(A, iters: int = 30):
@@ -86,16 +90,22 @@ def _check(name, t, shape):
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def pdhg_batched_cuda(A, b, c, l, u, opnorm, iters: int):
-    """One launch of the batched kernel from x0 = clip(0, l, u), y0 = 0.
-    Returns (x, y, x_avg, y_avg)."""
+def pdhg_batched_cuda(A, b, c, l, u, opnorm, iters: int, *,
+                      smem_budget: int = SMEM_PER_BLOCK,
+                      cluster_size: int | None = None):
+    """One cluster launch of the batched kernel from x0 = clip(0, l, u),
+    y0 = 0.  ``smem_budget`` and ``cluster_size`` reach
+    ``pdhg_cluster_plan`` (tests and timing scripts force layouts with
+    them); a layout that does not fit raises.  Returns (x, y, x_avg,
+    y_avg)."""
     B, m, n = A.shape
     _check("A", A, (B, m, n))
     _check("b", b, (B, m))
     for name, v in (("c", c), ("l", l), ("u", u)):
         _check(name, v, (B, n))
     _check("opnorm", opnorm, (B,))
-    lib = _build.library()
+    lib, plan = cluster_plan_on_card("pdhg_batched", A, B, m, n, smem_budget,
+                                     cluster_size)
     x, xa = torch.empty_like(c), torch.empty_like(c)
     y, ya = torch.empty_like(b), torch.empty_like(b)
     stream = torch.cuda.current_stream(A.device).cuda_stream
@@ -103,7 +113,9 @@ def pdhg_batched_cuda(A, b, c, l, u, opnorm, iters: int):
         err = lib.scx_pdhg_batched(
             A.data_ptr(), b.data_ptr(), c.data_ptr(), l.data_ptr(),
             u.data_ptr(), opnorm.data_ptr(), x.data_ptr(), y.data_ptr(),
-            xa.data_ptr(), ya.data_ptr(), B, m, n, int(iters), stream)
+            xa.data_ptr(), ya.data_ptr(), B, m, n, int(iters),
+            plan["cluster_size"], plan["n_res"], int(plan["scatter"]),
+            stream)
     _build.check(err, "scx_pdhg_batched")
     _build.LAUNCHES["pdhg_batched"] += 1
     return x, y, xa, ya

@@ -331,9 +331,12 @@ def test_pdhg_chunk_kernel_matches_plain(cuda, shape):
     again = pdhg_chunk(*args)
     torch.cuda.synchronize()
     assert _build.kernel_launch_counts()["pdhg_chunk"] == n0 + 2
-    p = pdhg_chunk_plain(*args)
+    # the plain version in float64: at 37 x 300 the float32 plain version's
+    # own eta lies 2.2e-2 from it (H100), the kernel's 5e-4
+    p = pdhg_chunk_plain(*(v.double() if torch.is_tensor(v) else v
+                           for v in args))
     for a, q in zip(k, p):                    # x, y, Ax, xs, ys, wsum, eta
-        assert _rel(a, q) <= CHUNK_RTOL
+        assert _rel(a.double(), q) <= CHUNK_RTOL
     assert all(torch.equal(a, q) for a, q in zip(k, again))
 
 
@@ -359,7 +362,8 @@ def test_halpern_chunk_kernel_matches_plain(cuda, shape):
     assert all(torch.equal(a, q) for a, q in zip(k, again))
 
 
-@pytest.mark.parametrize("shape", [(32, 64, 256), (3, 17, 70)])
+@pytest.mark.parametrize("shape", [(32, 64, 256), (3, 17, 70),
+                                   (1, 17, 70)])
 def test_pdhg_batched_kernel_matches_plain(cuda, shape):
     from smart_crossover_tpu_torch.solvers.pdhg_batched import (
         _opnorms, pdhg_batched_cuda, pdhg_fixed_batched_plain)
@@ -383,6 +387,144 @@ def test_pdhg_batched_kernel_matches_plain(cuda, shape):
     for a, q in zip(k, p):                    # x, y, x_avg, y_avg
         assert _rel(a, q) <= CHUNK_RTOL
     assert all(torch.equal(a, q) for a, q in zip(k, again))
+
+
+def _fleet(B, m, n, seed):
+    from smart_crossover_tpu_torch.solvers.pdhg_batched import _opnorms
+
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, m, n))
+    b = np.einsum("bmn,bn->bm", A, rng.uniform(0.1, 0.9, (B, n)))
+    c = rng.standard_normal((B, n))
+    A, b, c = (torch.tensor(v, dtype=torch.float32, device="cuda")
+               for v in (A, b, c))
+    l, u = torch.zeros_like(c), torch.ones_like(c)
+    return A, b, c, l, u, _opnorms(A)
+
+
+# every cluster size the plan can take, forced: C > m leaves ranks with no
+# rows, n = 70 is ragged (not a multiple of 4)
+@pytest.mark.parametrize("shape,C", [((3, 17, 70), C) for C in range(1, 17)]
+                         + [((1, 5, 70), 8), ((1, 5, 70), 16)])
+def test_pdhg_batched_kernel_cluster_sizes_match_plain(cuda, shape, C):
+    from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
+    from smart_crossover_tpu_torch.solvers.pdhg_batched import (
+        pdhg_batched_cuda, pdhg_fixed_batched_plain)
+
+    A, b, c, l, u, opn = _fleet(*shape, seed=55)
+    n0 = _build.kernel_launch_counts()["pdhg_batched"]
+    k = pdhg_batched_cuda(A, b, c, l, u, opn, 50, cluster_size=C)
+    again = pdhg_batched_cuda(A, b, c, l, u, opn, 50, cluster_size=C)
+    torch.cuda.synchronize()
+    assert _build.kernel_launch_counts()["pdhg_batched"] == n0 + 2
+    assert pc.LAST_LAUNCH["pdhg_batched"]["cluster_size"] == C
+    p = pdhg_fixed_batched_plain(A, b, c, l, u, opn, torch.zeros_like(c),
+                                 torch.zeros_like(b), 50)
+    for a, q in zip(k, p):                    # x, y, x_avg, y_avg
+        assert _rel(a, q) <= CHUNK_RTOL
+    assert all(torch.equal(a, q) for a, q in zip(k, again))
+
+
+# (shape, C, plain iterations before the chunk): the main-path layout from a
+# mid-run state; forced cluster sizes, C > m and ragged n from the start,
+# where the float32 trajectories of small LPs have not yet drifted apart
+@pytest.mark.parametrize("shape,C,warm", [
+    ((512, 2048), 16, 128), ((37, 300), 1, 0), ((37, 300), 3, 0),
+    ((37, 300), 8, 0), ((37, 300), 16, 0), ((6, 301), 16, 0)])
+def test_pdhg_chunk_kernel_cluster_sizes_match_plain(cuda, shape, C, warm):
+    """'<' rows (a quarter), omega != 1, forced cluster sizes."""
+    from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+        pdhg_chunk, pdhg_chunk_plain)
+
+    A, b, c, l, u, eq, x, y, Ax, opn = _lp(*shape, seed=56)
+    z = torch.zeros_like
+    st = pdhg_chunk_plain(A, b, c, l, u, eq, x, y, Ax, z(x), z(y), 0.0,
+                          0.9 / opn, 1.0, 0, opn, chunk=warm)
+    args = (A, b, c, l, u, eq, *st, 1.3, warm, opn)
+    k = pdhg_chunk(*args, cluster_size=C)
+    assert pc.LAST_LAUNCH["pdhg_chunk"]["cluster_size"] == C
+    again = pdhg_chunk(*args, cluster_size=C)
+    torch.cuda.synchronize()
+    p = pdhg_chunk_plain(*args)
+    for a, q in zip(k, p):                    # x, y, Ax, xs, ys, wsum, eta
+        assert _rel(a, q) <= CHUNK_RTOL
+    assert all(torch.equal(a, q) for a, q in zip(k, again))
+
+
+def test_pdhg_cluster_residency_is_bit_identical(cuda):
+    """At one C, rows in shared memory or read from global memory run the
+    same arithmetic in the same order: identical results."""
+    from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+        pdhg_chunk, pdhg_chunk_plain)
+    from smart_crossover_tpu_torch.solvers.pdhg_batched import (
+        pdhg_batched_cuda)
+
+    A, b, c, l, u, opn = _fleet(4, 40, 100, seed=57)
+    ref = pdhg_batched_cuda(A, b, c, l, u, opn, 200, cluster_size=4)
+    assert pc.LAST_LAUNCH["pdhg_batched"]["n_res"] == 10
+    for n_res in (7, 1, 0):
+        out = pdhg_batched_cuda(
+            A, b, c, l, u, opn, 200, cluster_size=4,
+            smem_budget=pc.pdhg_cluster_smem_bytes(40, 100, 4, n_res))
+        assert pc.LAST_LAUNCH["pdhg_batched"]["n_res"] == n_res
+        assert all(torch.equal(a, q) for a, q in zip(out, ref))
+    A, b, c, l, u, eq, x, y, Ax, opn = _lp(37, 301, seed=58)
+    z = torch.zeros_like
+    args = (A, b, c, l, u, eq, x, y, Ax, z(x), z(y), 0.0, 0.9 / opn, 1.0, 0,
+            opn)
+    ref = pdhg_chunk(*args, cluster_size=3)
+    for n_res in (5, 0):
+        out = pdhg_chunk(
+            *args, cluster_size=3,
+            smem_budget=pc.pdhg_cluster_smem_bytes(37, 301, 3, n_res))
+        assert pc.LAST_LAUNCH["pdhg_chunk"]["n_res"] == n_res
+        assert all(torch.equal(a, q) for a, q in zip(out, ref))
+    p = pdhg_chunk_plain(*args)
+    for a, q in zip(ref, p):
+        assert _rel(a, q) <= CHUNK_RTOL
+
+
+def test_pdhg_cluster_plan_on_card(cuda):
+    """The layouts the wrappers take from the card at the main-path shapes:
+    one wave each; K5 at 64 x 256 x 512 in pairs of blocks, at 32 x 64 x
+    256 one block per LP, K3 at 512 x 2048 in the largest cluster."""
+    from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import pdhg_chunk
+    from smart_crossover_tpu_torch.solvers.pdhg_batched import (
+        pdhg_batched_cuda)
+
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("plan expectations are for a 132-SM card")
+    pdhg_batched_cuda(*_fleet(64, 256, 512, seed=59), 2)
+    plan = pc.LAST_LAUNCH["pdhg_batched"]
+    assert plan["cluster_size"] == 2 and plan["waves"] == 1
+    pdhg_batched_cuda(*_fleet(32, 64, 256, seed=59), 2)
+    plan = pc.LAST_LAUNCH["pdhg_batched"]
+    assert plan["cluster_size"] == 1 and plan["a_in_smem"] == 1.0
+    A, b, c, l, u, eq, x, y, Ax, opn = _lp(512, 2048, seed=59)
+    pdhg_chunk(A, b, c, l, u, eq, x, y, Ax, x, y, 0.0, 0.01, 1.0, 0, opn,
+               chunk=2)
+    assert pc.LAST_LAUNCH["pdhg_chunk"]["cluster_size"] == 16
+
+
+def test_pdhg_cluster_kernels_raise_without_a_plan(cuda):
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import pdhg_chunk
+    from smart_crossover_tpu_torch.solvers.pdhg_batched import (
+        pdhg_batched_cuda)
+
+    A, b, c, l, u, opn = _fleet(1, 4, 300, seed=60)
+    n0 = _build.kernel_launch_counts()
+    with pytest.raises(ValueError, match="no cluster layout"):
+        pdhg_batched_cuda(A, b, c, l, u, opn, 3, smem_budget=1024)
+    with pytest.raises(ValueError, match="no cluster layout"):
+        pdhg_batched_cuda(A, b, c, l, u, opn, 3, cluster_size=17)
+    A, b, c, l, u, eq, x, y, Ax, opn = _lp(16, 40, seed=60)
+    with pytest.raises(ValueError, match="no cluster layout"):
+        pdhg_chunk(A, b, c, l, u, eq, x, y, Ax, x, y, 0.0, 0.01, 1.0, 0, opn,
+                   smem_budget=512)
+    assert _build.kernel_launch_counts() == n0
 
 
 def test_pdhg_kernels_reject_bad_input(cuda):
