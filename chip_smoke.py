@@ -22,10 +22,10 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           instance certified by the host f64 certifier, both kernels
           launched, stage split, certified instances/s;
   k3, k4  the PDHG and Halpern chunk kernels against their plain versions
-          at 512 x 2048, one 64-iteration chunk, with the median ms of each;
-          K3 with its cluster plan (cluster size, resident clusters, waves,
-          rows of A in shared memory, shared memory per block, combine) and
-          ms per iteration;
+          at 512 x 2048, one 64-iteration chunk, with the median ms of each,
+          ms per iteration and the cluster plan (cluster size, resident
+          clusters, waves, rows of A in shared memory, shared memory per
+          block, combine);
   k5      the batched PDHG kernel against its plain version at 32 x 64 x
           256 (2000 iterations) and 64 x 256 x 512 (4000 iterations), each
           also at 50 iterations for a tight check, median ms, ms per
@@ -530,6 +530,7 @@ def phase_k3(m, n, seed):
 def phase_k4(m, n, seed):
     import torch
 
+    from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
     from smart_crossover_tpu_torch.ops.pdhg_chunk import (
         halpern_chunk, halpern_chunk_plain)
 
@@ -540,6 +541,7 @@ def phase_k4(m, n, seed):
                                          Ax, 1.0, 0.0, step, chunk=128)
     args = (A, b, c, l, u, eq, x1, y1, Ax1, x, y, Ax, 1.0, 128.0, step)
     k, ms, _ = sync_time(lambda: halpern_chunk(*args), 20)
+    lay = dict(pc.LAST_LAUNCH["halpern_chunk"])
     p, plain_ms, _ = sync_time(lambda: halpern_chunk_plain(*args), 3)
     again = halpern_chunk(*args)
     torch.cuda.synchronize()
@@ -554,7 +556,8 @@ def phase_k4(m, n, seed):
           "k_out_plain": float(p[3]),
           **err, **acc, "max_abs_dx_dy_dAx": abs_err,
           "repeat_bit_identical": identical, "ms": ms,
-          "plain_ms": plain_ms,
+          "ms_per_iteration": ms / 64, "plain_ms": plain_ms,
+          **cluster_record(lay),
           "tolerance": {"rel": PDHG_RTOL, "f64_ratio": F64_RATIO}})
     require(all(np.isfinite(list(err.values()))), "k4 produced non-finite")
     require(max(err.values()) <= PDHG_RTOL,
@@ -563,7 +566,7 @@ def phase_k4(m, n, seed):
     require(k[3].item() == float(p[3]) == 192.0, "k4 returned a wrong k")
     require(identical, "k4 repeat launch not bit-identical")
     return summary("halpern_chunk", "smart_crossover_tpu_torch/csrc/"
-                   "pdhg_chunk.cu",
+                   "pdhg_cluster.cu",
                    "smart_crossover_tpu/ops/pdhg_pallas.py:183", abs_err, ms,
                    plain_ms, chunk_work(m, n, 8 * m + 6 * n))
 

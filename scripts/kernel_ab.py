@@ -1,10 +1,12 @@
 """Helpers of the kernel A/B scripts (scripts/torch_k1_ab.py,
-scripts/torch_k2_ab.py): build one CUDA source into its own shared library
-with the package's nvcc flags, and time a call as the median of synced
+scripts/torch_k2_ab.py, scripts/torch_pdhg_ab.py): build one CUDA source
+into its own shared library with the package's nvcc flags, report its
+kernels' registers and spills, and time a call as the median of synced
 runs.  Needs a CUDA card and nvcc."""
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -23,6 +25,38 @@ def build_shared(src: Path, out: Path, defines=()) -> ctypes.CDLL:
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-shared",
                     "-o", str(out), str(src)], check=True)
     return ctypes.CDLL(str(out))
+
+
+def ptxas_report(src: Path, out: Path, defines=()) -> dict:
+    """Registers, stack frame and spill bytes of each kernel template
+    instance in `src` (``ptxas -v``), by name, e.g.
+    ``pdhg_cluster_kernel<true>``; `out` (under build/) takes the object
+    file."""
+    from smart_crossover_tpu_torch import _build
+
+    out.parent.mkdir(parents=True, exist_ok=True)
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *defines,
+                        "-Xptxas", "-v", "-c", "-o", str(out), str(src)],
+                       capture_output=True, text=True, check=True)
+    report, name = {}, None
+    for line in (r.stdout + r.stderr).splitlines():
+        m = re.search(r"Function properties for \S*?([a-z_]+_kernel)ILb([01])",
+                      line)
+        if m:
+            name = f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}>"
+            report[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            report[name].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report[name]["registers"] = int(m.group(1))
+            name = None
+    return report
 
 
 def median_ms(fn, reps):

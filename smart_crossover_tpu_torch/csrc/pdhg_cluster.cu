@@ -1,8 +1,10 @@
-// Adaptive-step PDLP PDHG on a dense A for Hopper (sm_90a): one
-// thread-block cluster of C blocks per LP, the rows of A held in shared
-// memory for every iteration, the whole loop in one launch.
+// PDHG on a dense A for Hopper (sm_90a): one thread-block cluster of C
+// blocks per LP, the rows of A held in shared memory for every iteration,
+// the whole loop in one launch.  Two kernels share the layout and helpers:
+// pdhg_cluster_kernel (adaptive steps) and halpern_cluster_kernel (below
+// it, reflected Halpern with a fixed step).
 //
-// Replaces two TPU kernels that run the same iteration:
+// pdhg_cluster_kernel replaces two TPU kernels that run the same iteration:
 //   solvers/pdhg_batched.py::_batched_pdhg_kernel (K5)  a fleet of B
 //       equality LPs, `iters` iterations from x0 = clip(0, l, u), y0 = 0,
 //       eta0 = 0.9 / ||A_b||, omega = 1; returns the last iterates and the
@@ -64,7 +66,8 @@
 // runs in a fixed order, so repeated launches are bit-identical, and at a
 // fixed C the residency of the rows does not change a bit of the result.
 // Build with -DSCX_PDHG_STAMPS for clock64 totals per phase (rank 0 of
-// instance 0, thread 0), read back by scx_pdhg_stamps.
+// instance 0, thread 0), read back by scx_pdhg_stamps (scx_halpern_stamps
+// for the Halpern kernel).
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -90,6 +93,10 @@ constexpr int kScratch = 128;
 // barrier B, decision, output
 constexpr int kPhases = 9;
 __device__ long long scx_pdhg_stamp_totals[kPhases];
+// load, column pass, barrier A, combine and x_t, barrier A2 (with the x
+// update behind it), row pass, block barrier, output
+constexpr int kHalpernPhases = 8;
+__device__ long long scx_halpern_stamp_totals[kHalpernPhases];
 #define SCX_STAMP(k)                 \
   do {                               \
     const long long t_ = clock64();  \
@@ -577,6 +584,305 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const Args a)
   cl.sync();         // no rank leaves while another may still read its shared memory
 }
 
+// ---------------------------------------------------------------- K4
+// halpern_cluster_kernel replaces ops/pdhg_pallas.py::_halpern_chunk_kernel
+// (K4): `chunk` iterations of reflected-Halpern PDHG on one LP with '<'
+// rows, a fixed step and the primal weight omega (tau = step / omega,
+// sigma = step * omega), around anchors xa, ya, A xa that it only reads;
+// with lam = (k + 1) / (k + 2):
+//   x_t = clip(x - tau (c - A'y), l, u),  y_t = y + sigma (b - (2 A x_t - A x)),
+//   '<' rows clamped to y_t <= 0,
+//   x <- lam (2 x_t - x) + (1 - lam) xa, y and A x alike, k <- k + 1.
+// It is pdhg_cluster_kernel's iteration without the step rule: no accept
+// decision, no scalar reductions, no running sums.  Same rows per rank,
+// residency, column pass, combines and row pass; what differs:
+//   vectors  y, A x, b, the '=' flags, ya, A xa live only in the rank that
+//            owns their rows, updated in place by the row pass.  x_t is
+//            replicated.  All-read: x is replicated too (every rank updates
+//            all of it alike) and c, l, u, xa are read from global memory;
+//            scatter: x, xa, c, l, u of the rank's column slice only, in
+//            shared memory;
+//   barriers per iteration, from the exchanges:
+//     all-read  one cluster barrier, A (partials posted).  Each rank writes
+//               only its own partial buffer, double-buffered by iteration
+//               parity: the buffer a rank writes in iteration i + 2 was last
+//               read by the others before they arrived at A of i + 1, which
+//               the writer has passed.  Block barriers order x_t before the
+//               row pass and y before the next column pass;
+//     scatter   two, A (partials posted) and A2 (x_t quads delivered).  A
+//               rank pushes into an owner's partial buffer only after A2,
+//               and the owner read that buffer before arriving at A2; it
+//               pushes x_t into the other ranks only after the next A, and
+//               they read x_t in their row pass, before arriving there.  A2
+//               is split: arrive after the pushes, the x update of the owned
+//               quads, then wait.  A block barrier orders y before the next
+//               column pass;
+//   (block barriers where C = 1).  A'y is summed in rank order as in
+// pdhg_cluster_kernel, so repeated launches are bit-identical and at a
+// fixed C and combine the residency of the rows does not change a bit.
+struct HalpernArgs {
+  const float* A;        // (m, n)
+  const float* b;        // (m)
+  const float* c;        // (n)
+  const float* l;
+  const float* u;
+  const float* eq;       // (m): 1 on '=' rows
+  const float* x_in;     // (n), (m), (m): the state
+  const float* y_in;
+  const float* ax_in;
+  const float* xa;       // (n), (m), (m): the anchors
+  const float* ya;
+  const float* axa;
+  const float* scal_in;  // omega, k, step
+  float* x_out;          // (n), (m), (m)
+  float* y_out;
+  float* ax_out;
+  float* scal_out;       // omega, k + iters, step
+  int m, n, C, n_res, iters, scatter;
+};
+
+// x_t of a column quad from its x, (A'y), c, l, u (0 on padded columns,
+// where all five are 0).
+__device__ __forceinline__ float4 clip_step4(float4 x, float4 s, float4 c, float4 l, float4 u,
+                                             float tau) {
+  return make_float4(fminf(fmaxf(x.x - tau * (c.x - s.x), l.x), u.x),
+                     fminf(fmaxf(x.y - tau * (c.y - s.y), l.y), u.y),
+                     fminf(fmaxf(x.z - tau * (c.z - s.z), l.z), u.z),
+                     fminf(fmaxf(x.w - tau * (c.w - s.w), l.w), u.w));
+}
+
+// The Halpern step of a value z with its PDHG image t and anchor za.
+__device__ __forceinline__ float halpern(float lam, float t, float z, float za) {
+  return lam * (2.0f * t - z) + (1.0f - lam) * za;
+}
+
+__device__ __forceinline__ float4 halpern4(float lam, float4 t, float4 z, float4 za) {
+  return make_float4(halpern(lam, t.x, z.x, za.x), halpern(lam, t.y, z.y, za.y),
+                     halpern(lam, t.z, z.z, za.z), halpern(lam, t.w, z.w, za.w));
+}
+
+template <bool GVEC>
+__global__ void __launch_bounds__(kThreads, 1) halpern_cluster_kernel(const HalpernArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C, m = a.m, n = a.n;
+  const int rank = (int)cl.block_rank();
+  const int np = pad4(n), n4 = np / 4;
+  const int r0 = lo_row(rank, m, C), nr = lo_row(rank + 1, m, C) - r0;
+  const int nres = nr < a.n_res ? nr : a.n_res;
+  const int rp = pad4((m + C - 1) / C);
+  // the rank's column slice: quads split_rows(n4, C)[rank]
+  const int q0 = lo_row(rank, n4, C), q1 = lo_row(rank + 1, n4, C);
+  const int c0 = 4 * q0, c1 = 4 * q1 < n ? 4 * q1 : n;
+  const int cp = 4 * ((n4 + C - 1) / C), cq = cp / 4;
+  // column pass: thread (q4, r) = (tid % n4, tid / n4), G row groups
+  const int G = n4 >= kThreads ? 1 : kThreads / n4;
+  const int r_own = n4 >= kThreads ? 0 : tid / n4;
+  const bool scatter = a.scatter != 0;
+
+  // dynamic shared memory (ops/pdhg_cluster.py::halpern_cluster_smem_bytes)
+  float* Ms = smem;                                 // n_res rows of np
+  float* xt = Ms + (size_t)a.n_res * np;            // x_t, replicated
+  // all-read: this rank's partial A'y, two buffers of np by iteration
+  // parity; scatter: the C ranks' partials of this rank's column quads
+  float* pcol = xt + np;
+  float* red = pcol + (scatter ? C * cp : 2 * np);  // row-group partials
+  // all-read: x (np), replicated; scatter: x, xa, c, l, u of the rank's
+  // column slice (5 x cp)
+  float* xv = red + (G > 1 ? G * np : 0);
+  float* yv = xv + (scatter ? 5 * cp : np);         // y of the owned rows
+  float* axv = yv + rp;                             // A x
+  float* bv = axv + rp;                             // b
+  float* eqv = bv + rp;                             // 1 on '=' rows
+  float* yav = eqv + rp;                            // ya
+  float* axav = yav + rp;                           // A xa
+  float4* pcol4 = reinterpret_cast<float4*>(pcol);
+  float4* red4 = reinterpret_cast<float4*>(red);
+  float4* xt4 = reinterpret_cast<float4*>(xt);
+  float4* xv4 = reinterpret_cast<float4*>(xv);
+
+  const float* Ag = a.A + (size_t)r0 * n;           // this rank's rows
+  constexpr bool gvec = GVEC;
+
+#ifdef SCX_PDHG_STAMPS
+  long long st[kHalpernPhases] = {};
+  long long t_last = clock64();
+#endif
+
+  // the resident rows, once, padded to np with zeros
+  if (gvec) {
+    const size_t q4s = (size_t)nres * n4;
+    for (size_t k = tid; k < q4s; k += kThreads)
+      __pipeline_memcpy_async(Ms + 4 * k, Ag + 4 * k, 16);
+  } else {
+    for (int li = warp; li < nres; li += kWarps)
+      for (int j = lane; j < np; j += 32) {
+        if (j < n) __pipeline_memcpy_async(Ms + (size_t)li * np + j, Ag + (size_t)li * n + j, 4);
+        else Ms[(size_t)li * np + j] = 0.0f;
+      }
+  }
+  __pipeline_commit();
+  for (int j = tid; j < np; j += kThreads) {
+    xt[j] = 0.0f;
+    if (!scatter) xv[j] = j < n ? a.x_in[j] : 0.0f;
+  }
+  if (scatter)
+    for (int t = tid; t < cp; t += kThreads) {
+      const int j = c0 + t;
+      const bool in = j < c1;
+      xv[t] = in ? a.x_in[j] : 0.0f;
+      xv[cp + t] = in ? a.xa[j] : 0.0f;
+      xv[2 * cp + t] = in ? a.c[j] : 0.0f;
+      xv[3 * cp + t] = in ? a.l[j] : 0.0f;
+      xv[4 * cp + t] = in ? a.u[j] : 0.0f;
+    }
+  for (int li = tid; li < rp; li += kThreads) {
+    const bool in = li < nr;
+    const int i = r0 + li;
+    yv[li] = in ? a.y_in[i] : 0.0f;
+    axv[li] = in ? a.ax_in[i] : 0.0f;
+    bv[li] = in ? a.b[i] : 0.0f;
+    eqv[li] = in ? a.eq[i] : 1.0f;
+    yav[li] = in ? a.ya[i] : 0.0f;
+    axav[li] = in ? a.axa[i] : 0.0f;
+  }
+  const float omega = a.scal_in[0], step = a.scal_in[2];
+  const float tau = step / omega, sigma = step * omega;
+  float k = a.scal_in[1];
+  __pipeline_wait_prior(0);
+  // every rank of the cluster runs before one writes into another's shared
+  // memory (the scatter's column pass does so before barrier A)
+  if (C > 1) cl.sync();
+  else __syncthreads();
+  SCX_STAMP(0);
+
+  for (int it = 0; it < a.iters; ++it) {
+    const float lam = (k + 1.0f) / (k + 2.0f);
+    float4* pc4 = pcol4 + (scatter ? 0 : (it & 1) * n4);
+
+    // ---- column pass: this rank's partial A'y, pdhg_cluster_kernel's
+    // loop written out again: a shared function would move that kernel's
+    // registers and spills, which sit at the 128-register cap
+    if (r_own < G)
+      for (int q4 = tid - r_own * n4; q4 < n4; q4 += kThreads) {
+        const int lg = r_own < nres ? r_own + G * ((nres - r_own + G - 1) / G) : r_own;
+        float4 pre[kPrefetch];
+        if (lg < nr)
+#pragma unroll
+          for (int t = 0; t < kPrefetch; ++t) {
+            const int li = lg + t * G < nr ? lg + t * G : nr - 1;
+            pre[t] = load4(Ag + (size_t)li * n, 4 * q4, n, gvec);
+          }
+        float4 p = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+        for (int li = r_own; li < nres; li += G)
+          p = fma4(*reinterpret_cast<const float4*>(Ms + (size_t)li * np + 4 * q4), yv[li], p);
+#pragma unroll
+        for (int t = 0; t < kPrefetch; ++t)
+          if (lg + t * G < nr) p = fma4(pre[t], yv[lg + t * G], p);
+#pragma unroll 4
+        for (int li = lg + kPrefetch * G; li < nr; li += G)
+          p = fma4(load4(Ag + (size_t)li * n, 4 * q4, n, gvec), yv[li], p);
+        if (G == 1) post_partial(cl, pc4, q4, p, a.scatter, rank, n4, C, cq);
+        else red4[r_own * n4 + q4] = p;
+      }
+    if (G > 1) {
+      __syncthreads();
+      for (int q4 = tid; q4 < n4; q4 += kThreads) {
+        float4 p = red4[q4];
+        for (int r = 1; r < G; ++r) p = add4(p, red4[r * n4 + q4]);
+        post_partial(cl, pc4, q4, p, a.scatter, rank, n4, C, cq);
+      }
+    }
+    SCX_STAMP(1);
+    if (C > 1) cl.sync();                        // A: partials posted
+    else __syncthreads();
+    SCX_STAMP(2);
+
+    // ---- combine: A'y in rank order, x_t, and the Halpern step of x
+    if (scatter) {
+      // the rank's quads from its own shared memory, each x_t stored into
+      // every rank
+      for (int q4 = q0 + tid; q4 < q1; q4 += kThreads) {
+        const int t4 = q4 - q0;
+        float4 s = pc4[t4];
+        for (int q = 1; q < C; ++q) s = add4(s, pc4[q * cq + t4]);
+        const float4 v = clip_step4(xv4[t4], s, xv4[2 * cq + t4], xv4[3 * cq + t4],
+                                    xv4[4 * cq + t4], tau);
+        xt4[q4] = v;
+        for (int d = 1; d < C; ++d) cl.map_shared_rank(xt4, (unsigned)((rank + d) % C))[q4] = v;
+      }
+      SCX_STAMP(3);
+      if (C > 1) cl.barrier_arrive();            // A2: x_t quads delivered
+      for (int q4 = q0 + tid; q4 < q1; q4 += kThreads) {
+        const int t4 = q4 - q0;
+        xv4[t4] = halpern4(lam, xt4[q4], xv4[t4], xv4[cq + t4]);
+      }
+      if (C > 1) cl.barrier_wait();
+      else __syncthreads();
+    } else {
+      // every quad from the C ranks' partials; x replicated
+      for (int q4 = tid; q4 < n4; q4 += kThreads) {
+        float4 s = cl.map_shared_rank(pc4, 0u)[q4];
+        for (int q = 1; q < C; ++q) s = add4(s, cl.map_shared_rank(pc4, (unsigned)q)[q4]);
+        const int j = 4 * q4;
+        const float4 v = clip_step4(xv4[q4], s, load4(a.c, j, n, false), load4(a.l, j, n, false),
+                                    load4(a.u, j, n, false), tau);
+        xt4[q4] = v;
+        xv4[q4] = halpern4(lam, v, xv4[q4], load4(a.xa, j, n, false));
+      }
+      SCX_STAMP(3);
+      __syncthreads();                           // x_t complete
+    }
+    SCX_STAMP(4);
+
+    // ---- row pass: A x_t, y_t, and the Halpern step of y and A x of the
+    // owned rows, kRows rows per warp at once; lane r finishes row r
+    for (int base = warp; base < nr; base += kWarps * kRows) {
+      const float* rows[kRows];
+      bool vec[kRows];
+      float s[kRows];
+      step_rows(base, nres, gvec, Ms, np, Ag, n, rows, vec);
+      step_dot(base, nr, rows, vec, xt, n, n4, lane, s);
+      const int li = base + kWarps * lane;
+      if (lane < kRows && li < nr) {
+        float sr = s[0];
+#pragma unroll
+        for (int r = 1; r < kRows; ++r)
+          if (lane == r) sr = s[r];
+        const float axo = axv[li], yo = yv[li];
+        const float yt0 = yo + sigma * (bv[li] - (2.0f * sr - axo));
+        const float yt = eqv[li] > 0.0f ? yt0 : fminf(yt0, 0.0f);
+        yv[li] = halpern(lam, yt, yo, yav[li]);
+        axv[li] = halpern(lam, sr, axo, axav[li]);
+      }
+    }
+    SCX_STAMP(5);
+    __syncthreads();                             // y before the next column pass
+    k += 1.0f;
+    SCX_STAMP(6);
+  }
+
+  // ---- outputs: the owned column slice and rows
+  for (int j = c0 + tid; j < c1; j += kThreads) a.x_out[j] = xv[scatter ? j - c0 : j];
+  for (int li = tid; li < nr; li += kThreads) {
+    a.y_out[r0 + li] = yv[li];
+    a.ax_out[r0 + li] = axv[li];
+  }
+  if (rank == 0 && tid == 0) {
+    a.scal_out[0] = omega;
+    a.scal_out[1] = k;
+    a.scal_out[2] = step;
+  }
+  SCX_STAMP(7);
+#ifdef SCX_PDHG_STAMPS
+  if (rank == 0 && tid == 0)
+    for (int q = 0; q < kHalpernPhases; ++q) scx_halpern_stamp_totals[q] = st[q];
+#endif
+  cl.sync();         // no rank leaves while another may still read its shared memory
+}
+
 // Bytes of dynamic shared memory of one block
 // (ops/pdhg_cluster.py::pdhg_cluster_smem_bytes).
 size_t smem_bytes(int m, int n, int C, int n_res) {
@@ -589,14 +895,32 @@ size_t smem_bytes(int m, int n, int C, int n_res) {
   return 4 * floats;
 }
 
+// Bytes of dynamic shared memory of one block of the Halpern kernel
+// (ops/pdhg_cluster.py::halpern_cluster_smem_bytes).
+size_t halpern_smem_bytes(int m, int n, int C, int n_res, int scatter) {
+  const size_t np = ((size_t)n + 3) & ~(size_t)3, n4 = np / 4;
+  const size_t G = n4 >= (size_t)kThreads ? 1 : kThreads / n4;
+  const size_t rp = ((size_t)(m + C - 1) / C + 3) & ~(size_t)3;
+  const size_t cp = 4 * ((n4 + C - 1) / C);
+  const size_t floats = (size_t)n_res * np + np + (scatter ? C * cp + 5 * cp : 3 * np) +
+                        (G > 1 ? G * np : 0) + 6 * rp;
+  return 4 * floats;
+}
+
 using Kernel = void (*)(Args);
+using HalpernKernel = void (*)(HalpernArgs);
 
 Kernel kernel_for(bool gvec) {
   return gvec ? pdhg_cluster_kernel<true> : pdhg_cluster_kernel<false>;
 }
 
+HalpernKernel halpern_kernel_for(bool gvec) {
+  return gvec ? halpern_cluster_kernel<true> : halpern_cluster_kernel<false>;
+}
+
 // Lets the kernel take `smem` bytes and, above 8, a non-portable cluster.
-cudaError_t prepare(Kernel k, size_t smem, int C) {
+template <class K>
+cudaError_t prepare(K k, size_t smem, int C) {
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e == cudaSuccess && C > 8)
     e = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -620,12 +944,10 @@ cudaLaunchConfig_t launch_config(int B, int C, size_t smem, cudaStream_t stream,
   return cfg;
 }
 
-int launch(const Args& a, int B, void* stream_ptr) {
-  // the decision's inbox holds 16 ranks' partials
-  if (a.C < 1 || a.C > 16) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(a.m, a.n, a.C, a.n_res);
-  const Kernel k =
-      kernel_for((a.n & 3) == 0 && (reinterpret_cast<uintptr_t>(a.A) & 15u) == 0);
+// One cluster launch of kernel k with `smem` bytes per block on the stream;
+// returns the CUDA error code.
+template <class K, class A>
+int launch_cluster(K k, const A& a, int B, size_t smem, void* stream_ptr) {
   cudaError_t e = prepare(k, smem, a.C);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
@@ -636,17 +958,23 @@ int launch(const Args& a, int B, void* stream_ptr) {
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int scx_pdhg_cluster_smem_bytes(int m, int n, int C, int n_res) {
-  return (int)smem_bytes(m, n, C, n_res);
+// Rows of A in global memory load 16 bytes at a time where n is a multiple
+// of 4 and A is 16-byte aligned.
+bool global_vec(const float* A, int n) {
+  return (n & 3) == 0 && (reinterpret_cast<uintptr_t>(A) & 15u) == 0;
 }
 
-// How many clusters of this launch the card can hold at once
-// (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
-extern "C" int scx_pdhg_cluster_max_clusters(int B, int m, int n, int C, int n_res) {
-  const size_t smem = smem_bytes(m, n, C, n_res);
-  const Kernel k = kernel_for((n & 3) == 0);
+int launch(const Args& a, int B, void* stream_ptr) {
+  // the decision's inbox holds 16 ranks' partials
+  if (a.C < 1 || a.C > 16) return (int)cudaErrorInvalidValue;
+  return launch_cluster(kernel_for(global_vec(a.A, a.n)), a, B,
+                        smem_bytes(a.m, a.n, a.C, a.n_res), stream_ptr);
+}
+
+// How many clusters of C blocks with `smem` bytes each the card can hold at
+// once (cudaOccupancyMaxActiveClusters), or minus the CUDA error.
+template <class K>
+int max_clusters(K k, int B, int C, size_t smem) {
   cudaError_t e = prepare(k, smem, C);
   if (e != cudaSuccess) {
     cudaGetLastError();
@@ -661,6 +989,28 @@ extern "C" int scx_pdhg_cluster_max_clusters(int B, int m, int n, int C, int n_r
     return -(int)e;
   }
   return count;
+}
+
+}  // namespace
+
+extern "C" int scx_pdhg_cluster_smem_bytes(int m, int n, int C, int n_res) {
+  return (int)smem_bytes(m, n, C, n_res);
+}
+
+// How many clusters of this launch the card can hold at once, or minus the
+// CUDA error.
+extern "C" int scx_pdhg_cluster_max_clusters(int B, int m, int n, int C, int n_res) {
+  return max_clusters(kernel_for((n & 3) == 0), B, C, smem_bytes(m, n, C, n_res));
+}
+
+extern "C" int scx_halpern_cluster_smem_bytes(int m, int n, int C, int n_res, int scatter) {
+  return (int)halpern_smem_bytes(m, n, C, n_res, scatter);
+}
+
+// The same for one Halpern cluster.
+extern "C" int scx_halpern_cluster_max_clusters(int m, int n, int C, int n_res, int scatter) {
+  return max_clusters(halpern_kernel_for((n & 3) == 0), 1, C,
+                      halpern_smem_bytes(m, n, C, n_res, scatter));
 }
 
 // K5: `iters` iterations for each of B equality LPs from x0 = clip(0, l, u),
@@ -692,9 +1042,34 @@ extern "C" int scx_pdhg_chunk(const float* A, const float* b, const float* c, co
   return launch(a, 1, stream_ptr);
 }
 
+// K4: `chunk` Halpern iterations of one LP from the state x_in (n), y_in,
+// ax_in (m) around the anchors xa (n), ya, axa (m), into x_out, y_out,
+// ax_out (which must not alias the inputs); scal_in / scal_out: [omega, k,
+// step]; eq (m) is 1 on '=' rows.  Returns the launch's CUDA error code.
+extern "C" int scx_halpern_chunk(const float* A, const float* b, const float* c, const float* l,
+                                 const float* u, const float* eq, const float* x_in,
+                                 const float* y_in, const float* ax_in, const float* xa,
+                                 const float* ya, const float* axa, const float* scal_in,
+                                 float* scal_out, float* x_out, float* y_out, float* ax_out,
+                                 int m, int n, int chunk, int C, int n_res, int scatter,
+                                 void* stream_ptr) {
+  if (C < 1 || C > 16) return (int)cudaErrorInvalidValue;
+  const HalpernArgs a = {A,     b,     c,      l,        u, eq, x_in, y_in,  ax_in, xa,    ya,
+                         axa,   scal_in, x_out, y_out, ax_out, scal_out, m, n, C, n_res, chunk,
+                         scatter};
+  return launch_cluster(halpern_kernel_for(global_vec(A, n)), a, 1,
+                        halpern_smem_bytes(m, n, C, n_res, scatter), stream_ptr);
+}
+
 #ifdef SCX_PDHG_STAMPS
 // The last launch's clock64 totals per phase (rank 0 of instance 0).
 extern "C" int scx_pdhg_stamps(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, scx_pdhg_stamp_totals, sizeof(long long) * kPhases);
+}
+
+// The same for the last Halpern launch (rank 0).
+extern "C" int scx_halpern_stamps(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, scx_halpern_stamp_totals,
+                                   sizeof(long long) * kHalpernPhases);
 }
 #endif

@@ -15,14 +15,13 @@ keyword: 1-D vectors and the scalar state.
   the last restart and sets the Halpern weight (k + 1) / (k + 2).  The
   anchors xa, ya, Axa are read, never written.
 
-On the H100 ``pdhg_chunk`` runs as one cluster launch per chunk
-(``csrc/pdhg_cluster.cu``, shared with the fleet kernel): a thread-block
-cluster of up to 16 blocks holds the rows of A in shared memory for the
-chunk, with two cluster barriers per iteration (three with the scatter
-combine); ``ops/pdhg_cluster.py::pdhg_cluster_plan`` picks the layout.
-``halpern_chunk`` runs as one cooperative launch per chunk
-(``csrc/pdhg_chunk.cu``): A stays in L2 for the chunk, and the grid syncs
-twice per iteration.  The TPU's (8, 128) padding and VMEM gate
+On the H100 each runs as one cluster launch per chunk
+(``csrc/pdhg_cluster.cu``; ``pdhg_chunk`` shares its kernel with the fleet
+kernel): a thread-block cluster of up to 16 blocks holds the rows of A in
+shared memory for the chunk; ``ops/pdhg_cluster.py::pdhg_cluster_plan``
+picks the layout.  ``pdhg_chunk`` takes two cluster barriers per iteration
+(three with the scatter combine), ``halpern_chunk``, which has no step
+rule, one (two with the scatter).  The TPU's (8, 128) padding and VMEM gate
 (``pad_lp_for_pallas``, ``pdhg_pallas_ok``) have no counterpart: the
 kernels take any (m, n).  A CUDA tensor launches the kernel or raises; a
 CPU tensor runs the plain version.
@@ -154,22 +153,26 @@ def _pdhg_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xs, ys,
 
 
 def _halpern_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,
-                        omega, k, step, chunk):
+                        omega, k, step, chunk, smem_budget, cluster_size,
+                        scatter):
     m, n, eq = _vectors("halpern_chunk", A, eq, b=b, c=c, l=l, u=u, x=x,
                         y=y, Ax=Ax, xa=xa, ya=ya, Axa=Axa)
-    lib = _build.library()
-    x_o, y_o, ax_o = x.clone(), y.clone(), Ax.clone()
-    xt = torch.empty_like(x)
+    lib, plan = cluster_plan_on_card("halpern_chunk", A, 1, m, n,
+                                     smem_budget, cluster_size, scatter)
     scal_in = _scalars(A, omega, k, step)
     scal_out = torch.zeros_like(scal_in)
+    x_o, y_o, ax_o = torch.empty_like(x), torch.empty_like(y), \
+        torch.empty_like(Ax)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
         err = lib.scx_halpern_chunk(
             A.data_ptr(), b.data_ptr(), c.data_ptr(), l.data_ptr(),
-            u.data_ptr(), eq.data_ptr(), x_o.data_ptr(), y_o.data_ptr(),
-            ax_o.data_ptr(), xa.data_ptr(), ya.data_ptr(), Axa.data_ptr(),
-            xt.data_ptr(), scal_in.data_ptr(), scal_out.data_ptr(), m, n,
-            int(chunk), stream)
+            u.data_ptr(), eq.data_ptr(), x.data_ptr(), y.data_ptr(),
+            Ax.data_ptr(), xa.data_ptr(), ya.data_ptr(), Axa.data_ptr(),
+            scal_in.data_ptr(), scal_out.data_ptr(), x_o.data_ptr(),
+            y_o.data_ptr(), ax_o.data_ptr(), m, n, int(chunk),
+            plan["cluster_size"], plan["n_res"], int(plan["scatter"]),
+            stream)
     _build.check(err, "scx_halpern_chunk")
     _build.LAUNCHES["halpern_chunk"] += 1
     return x_o, y_o, ax_o, scal_out[1]
@@ -202,12 +205,26 @@ def pdhg_chunk(A, b, c, l, u, eq, x, y, Ax, xs, ys,
 
 
 def halpern_chunk(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,
-                  omega, k, step, chunk: int = 64):
+                  omega, k, step, chunk: int = 64, *,
+                  smem_budget: int = SMEM_PER_BLOCK,
+                  cluster_size: int | None = None, scatter=None):
     """``chunk`` reflected-Halpern PDHG iterations around the anchor
-    (xa, ya, Axa).  Returns (x, y, Ax, k + chunk)."""
+    (xa, ya, Axa).
+
+    Args:
+        A: (m, n); b, eq, y, Ax, ya, Axa: (m,); c, l, u, x, xa: (n,)
+            tensors.  eq is 1.0 (or True) on '=' rows.
+        omega, k, step: scalars (numbers or 0-d tensors).
+        smem_budget, cluster_size, scatter: reach ``pdhg_cluster_plan``
+            (tests and timing scripts force layouts and the combine with
+            them); a layout that does not fit raises.
+
+    Returns (x, y, Ax, k + chunk).
+    """
     if A.is_cuda:
         return _halpern_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,
-                                   omega, k, step, chunk)
+                                   omega, k, step, chunk, smem_budget,
+                                   cluster_size, scatter)
     if A.device.type != "cpu":
         raise ValueError(f"halpern_chunk: no kernel for {A.device}")
     return halpern_chunk_plain(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,

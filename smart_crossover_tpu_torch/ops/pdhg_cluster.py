@@ -1,23 +1,25 @@
-"""The cluster PDHG kernel's layout plan and its rank decomposition.
+"""The cluster PDHG kernels' layout plans and their rank decompositions.
 
-``csrc/pdhg_cluster.cu`` runs adaptive-step PDLP PDHG on a dense A with one
-thread-block cluster of C blocks per LP.  It serves two wrappers:
-``solvers/pdhg_batched.py::pdhg_batched_cuda`` (replacing the TPU kernel
-``_batched_pdhg_kernel``, a fleet of equality LPs) and
+``csrc/pdhg_cluster.cu`` runs PDHG on a dense A with one thread-block
+cluster of C blocks per LP, in two kernels.  The adaptive-step kernel
+serves ``solvers/pdhg_batched.py::pdhg_batched_cuda`` (replacing the TPU
+kernel ``_batched_pdhg_kernel``, a fleet of equality LPs) and
 ``ops/pdhg_chunk.py::pdhg_chunk`` (replacing ``_pdhg_chunk_kernel``, one LP
-with '<' rows and the primal weight).  Rank q of a cluster owns rows
-``split_rows(m, C)[q]`` of A and keeps as many of them as fit in its shared
-memory for every iteration; the rest it reads from L2 behind the same
-loops.  Per iteration the ranks post partial A'y over their rows, combine
-them in rank order through distributed shared memory into the same x_c,
-take A x_c over their rows, and add the posted scalar partials (the
-curvature dy.(A x_c - A x), |dx|^2 over the rank's column slice
-(``column_slices``), |dy|^2) in rank order, so every rank takes the same
-step decision.
+with '<' rows and the primal weight); the Halpern kernel serves
+``ops/pdhg_chunk.py::halpern_chunk`` (replacing ``_halpern_chunk_kernel``).
+Rank q of a cluster owns rows ``split_rows(m, C)[q]`` of A and keeps as
+many of them as fit in its shared memory for every iteration; the rest it
+reads from L2 behind the same loops.  Per iteration the ranks post partial
+A'y over their rows and combine them in rank order through distributed
+shared memory into the same x_c, then take A x_c over their rows.  The
+adaptive kernel also adds the posted scalar partials (the curvature
+dy.(A x_c - A x), |dx|^2 over the rank's column slice (``column_slices``),
+|dy|^2) in rank order, so every rank takes the same step decision; the
+Halpern kernel has no step rule and no scalar partials.
 
-``pdhg_cluster_plan`` picks C and the layout, ``pdhg_batched_split`` and
-``pdhg_chunk_split`` are the rank decomposition in tensor form, for the
-tests.
+``pdhg_cluster_plan`` picks C and the layout of either kernel;
+``pdhg_batched_split``, ``pdhg_chunk_split`` and ``halpern_chunk_split``
+are the rank decompositions in tensor form, for the tests.
 """
 from __future__ import annotations
 
@@ -29,11 +31,20 @@ from smart_crossover_tpu_torch.config import SMEM_PER_BLOCK, SMS, split_rows
 _THREADS = 512           # kThreads in the CUDA source
 _SCRATCH_FLOATS = 128    # kScratch: the warps', the cluster's and the ranks' sums
 _CLUSTER_SIZES = tuple(range(1, 17))   # above 8: non-portable sizes
+# the plans' combine: the scatter from this cluster size on, the all-read
+# below (on an H100 the scatter won at C = 8, 12 and 16 and lost at C <= 4)
+_SCATTER_FROM = 8
 
 # plan of each wrapper's last launch, with the card's answer to how many of
 # its clusters can be resident at once (read by chip_smoke.py)
-LAST_LAUNCH: dict = {"pdhg_batched": {}, "pdhg_chunk": {}}
+LAST_LAUNCH: dict = {"pdhg_batched": {}, "pdhg_chunk": {}, "halpern_chunk": {}}
 _MAX_ACTIVE: dict = {}
+
+
+def _scatter(C: int, scatter) -> bool:
+    """The combine at cluster size C: ``scatter`` where given, else the
+    plans' rule."""
+    return C >= _SCATTER_FROM if scatter is None else bool(scatter)
 
 
 def pdhg_cluster_smem_bytes(m: int, n: int, C: int, n_res: int) -> int:
@@ -57,6 +68,29 @@ def pdhg_cluster_smem_bytes(m: int, n: int, C: int, n_res: int) -> int:
     return 4 * floats
 
 
+def halpern_cluster_smem_bytes(m: int, n: int, C: int, n_res: int,
+                               scatter=None) -> int:
+    """Dynamic shared memory of one block of the Halpern kernel
+    (``halpern_smem_bytes`` in the CUDA source), float32 throughout: n_res
+    resident rows of A and x_t (replicated), padded to np = n rounded up to
+    4; the partials of A'y (all-read: two buffers of np, by iteration
+    parity; scatter: C column slices of cp = 4 ceil(np / 4 / C) floats); the
+    row-group partials of the column pass (G x np where G = threads /
+    (np / 4) > 1); x (all-read: np, replicated; scatter: x, xa, c, l and u
+    of the rank's column slice, 5 x cp); y, A x, b, the '=' flags, ya and
+    A xa of ceil(m / C) rows, padded to 4.  ``scatter`` None: the plans'
+    combine for C."""
+    n4 = -(-n // 4)
+    np_ = 4 * n4
+    G = 1 if n4 >= _THREADS else _THREADS // n4
+    rmax = -(-m // C)
+    rp = 4 * -(-rmax // 4)
+    cp = 4 * -(-n4 // C)
+    cols = (C + 5) * cp if _scatter(C, scatter) else 3 * np_
+    floats = n_res * np_ + np_ + cols + (G * np_ if G > 1 else 0) + 6 * rp
+    return 4 * floats
+
+
 def column_slices(n: int, C: int):
     """The ranks' column slices: rank q owns the column quads
     ``split_rows(ceil(n / 4), C)[q]`` (the kernel's c0, c1), cut at n.  It
@@ -67,33 +101,41 @@ def column_slices(n: int, C: int):
 
 def pdhg_cluster_plan(B: int, m: int, n: int,
                       smem_budget: int = SMEM_PER_BLOCK, sms: int = SMS, *,
-                      active=None, cluster_size: int | None = None) -> dict:
-    """How the kernel lays out B LPs of shape (m, n): C blocks per LP.
+                      active=None, cluster_size: int | None = None,
+                      halpern: bool = False, scatter=None) -> dict:
+    """How a kernel lays out B LPs of shape (m, n): C blocks per LP.
 
     For each C in 1..16 (or ``cluster_size`` alone), rank q owns rows
     ``split_rows(m, C)[q]`` and keeps the first n_res of them in shared
-    memory, n_res as large as ``smem_budget`` allows.  ``active(C, n_res)``
-    is how many such clusters the card holds at once (the wrappers ask the
-    card; without it, as in the CPU tests, the plan assumes one block per SM
-    of ``sms``), so B LPs run in ceil(B / active) waves.  The plan takes the
-    fewest waves, then the most of A in shared memory, then the smallest C
-    (fewer ranks exchange less).
+    memory, n_res as large as ``smem_budget`` allows under the layout of
+    the adaptive kernel (``pdhg_cluster_smem_bytes``) or, with ``halpern``,
+    of the Halpern kernel (``halpern_cluster_smem_bytes``).  ``active(C,
+    n_res)`` is how many such clusters the card holds at once (the wrappers
+    ask the card; without it, as in the CPU tests, the plan assumes one
+    block per SM of ``sms``), so B LPs run in ceil(B / active) waves.  The
+    plan takes the fewest waves, then the most of A in shared memory, then
+    the smallest C (fewer ranks exchange less).
     From 8 blocks on the combine is the scatter (see the CUDA source), below
-    the all-read: on an H100 the scatter won at C = 8, 12 and 16 and lost at
-    C <= 4.  Raises ValueError where no C fits.
+    the all-read, unless ``scatter`` forces one.  Raises ValueError where
+    no C fits.
     """
     if cluster_size is not None and cluster_size not in _CLUSTER_SIZES:
         raise ValueError(f"pdhg cluster kernel: no cluster layout of size "
                          f"{cluster_size}; sizes are {_CLUSTER_SIZES}")
+
+    def nbytes(C, n_res):
+        if halpern:
+            return halpern_cluster_smem_bytes(m, n, C, n_res, scatter)
+        return pdhg_cluster_smem_bytes(m, n, C, n_res)
+
     np_ = -(-n // 4) * 4
     best = None
     for C in ((cluster_size,) if cluster_size else _CLUSTER_SIZES):
-        fixed = pdhg_cluster_smem_bytes(m, n, C, 0)
+        fixed = nbytes(C, 0)
         if fixed > smem_budget:
             continue
         rmax = -(-m // C)
         n_res = min(rmax, (smem_budget - fixed) // (4 * np_))
-        smem = pdhg_cluster_smem_bytes(m, n, C, n_res)
         n_act = active(C, n_res) if active is not None else sms // C
         if n_act < 1:
             continue
@@ -105,46 +147,65 @@ def pdhg_cluster_plan(B: int, m: int, n: int,
             best = (key, {
                 "cluster_size": C, "row_ranges": ranges, "n_res": n_res,
                 "rows_in_smem": resident, "a_in_smem": resident / m,
-                "smem_bytes": smem, "max_active_clusters": n_act,
-                "waves": waves, "scatter": C >= 8})
+                "smem_bytes": nbytes(C, n_res), "max_active_clusters": n_act,
+                "waves": waves, "scatter": _scatter(C, scatter)})
     if best is None:
         raise ValueError(
             f"pdhg cluster kernel: no cluster layout fits {m} x {n} in "
             f"{smem_budget} bytes of shared memory per block (the "
             f"vectors alone take at least "
-            f"{min(pdhg_cluster_smem_bytes(m, n, C, 0) for C in _CLUSTER_SIZES)})")
+            f"{min(nbytes(C, 0) for C in _CLUSTER_SIZES)})")
     return best[1]
 
 
-def _active_clusters(lib, B, m, n):
-    """The card's count of resident clusters for a layout, queried once per
-    (m, n, C, n_res) and cached; 0 where the card refuses the size."""
+def _active_clusters(lib, B, m, n, halpern=False, scatter=None):
+    """The card's count of resident clusters for a layout of either kernel,
+    queried once per layout and cached; 0 where the card refuses the
+    size."""
     def active(C, n_res):
-        key = (m, n, C, n_res)
+        sc = _scatter(C, scatter)
+        key = (halpern, m, n, C, n_res, sc if halpern else None)
         if key not in _MAX_ACTIVE:
-            cnt = lib.scx_pdhg_cluster_max_clusters(B, m, n, C, n_res)
+            if halpern:
+                cnt = lib.scx_halpern_cluster_max_clusters(m, n, C, n_res,
+                                                           int(sc))
+            else:
+                cnt = lib.scx_pdhg_cluster_max_clusters(B, m, n, C, n_res)
             _MAX_ACTIVE[key] = max(cnt, 0)
         return _MAX_ACTIVE[key]
     return active
 
 
 def cluster_plan_on_card(name: str, A: torch.Tensor, B: int, m: int, n: int,
-                         smem_budget: int, cluster_size):
-    """The plan for a launch on A's card, checked against the source's
-    shared-memory layout and recorded in ``LAST_LAUNCH[name]``; returns the
-    loaded library and the plan."""
+                         smem_budget: int, cluster_size, scatter=None):
+    """The plan for a launch on A's card (the Halpern kernel's layout for
+    ``name`` "halpern_chunk"), checked against the source's shared-memory
+    layout and recorded in ``LAST_LAUNCH[name]``; returns the loaded
+    library and the plan."""
     lib = _build.library()
+    halpern = name == "halpern_chunk"
     with torch.cuda.device(A.device):
-        plan = pdhg_cluster_plan(B, m, n, smem_budget,
-                                 active=_active_clusters(lib, B, m, n),
-                                 cluster_size=cluster_size)
-    smem = lib.scx_pdhg_cluster_smem_bytes(m, n, plan["cluster_size"],
-                                           plan["n_res"])
+        plan = pdhg_cluster_plan(
+            B, m, n, smem_budget,
+            active=_active_clusters(lib, B, m, n, halpern, scatter),
+            cluster_size=cluster_size, halpern=halpern, scatter=scatter)
+    C, n_res = plan["cluster_size"], plan["n_res"]
+    smem = (lib.scx_halpern_cluster_smem_bytes(m, n, C, n_res,
+                                               int(plan["scatter"]))
+            if halpern else lib.scx_pdhg_cluster_smem_bytes(m, n, C, n_res))
     if smem != plan["smem_bytes"]:
         raise RuntimeError(f"{name}: the kernel lays out {smem} bytes of "
                            f"shared memory, the plan {plan['smem_bytes']}")
     LAST_LAUNCH[name] = dict(plan, shape=[B, m, n])
     return lib, plan
+
+
+def _ranked(parts):
+    """Partials added in rank order."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
 
 
 def _cluster_iterations(A, b, c, l, u, is_eq, x, y, Ax, xs, ys, wsum, eta,
@@ -155,26 +216,19 @@ def _cluster_iterations(A, b, c, l, u, is_eq, x, y, Ax, xs, ys, wsum, eta,
     rows, cols = split_rows(m, C), column_slices(n, C)
     lo, hi = 1e-10 / opnorm, 1e10 / opnorm
     eqm = is_eq.expand(B, m)
-
-    def ranked(parts):                        # partials added in rank order
-        total = parts[0]
-        for p in parts[1:]:
-            total = total + p
-        return total
-
     for i in range(iters):
         tau, sigma = (eta / omega)[:, None], (eta * omega)[:, None]
-        aty = ranked([torch.einsum("bmn,bm->bn", A[:, r0:r1], y[:, r0:r1])
+        aty = _ranked([torch.einsum("bmn,bm->bn", A[:, r0:r1], y[:, r0:r1])
                       for r0, r1 in rows])
         x_c = torch.minimum(torch.maximum(x - tau * (c - aty), l), u)
         Ax_c = torch.einsum("bmn,bn->bm", A, x_c)
         y_t = y + sigma * (b - (2.0 * Ax_c - Ax))
         y_c = torch.where(eqm, y_t, torch.clamp(y_t, max=0.0))
         dx, dy = x_c - x, y_c - y
-        curv = ranked([(dy[:, r0:r1] * (Ax_c - Ax)[:, r0:r1]).sum(1)
+        curv = _ranked([(dy[:, r0:r1] * (Ax_c - Ax)[:, r0:r1]).sum(1)
                        for r0, r1 in rows]).abs()
-        dxx = ranked([(dx[:, c0:c1] ** 2).sum(1) for c0, c1 in cols])
-        dyy = ranked([(dy[:, r0:r1] ** 2).sum(1) for r0, r1 in rows])
+        dxx = _ranked([(dx[:, c0:c1] ** 2).sum(1) for c0, c1 in cols])
+        dyy = _ranked([(dy[:, r0:r1] ** 2).sum(1) for r0, r1 in rows])
         nz = omega * dxx + dyy / omega
         eta_bar = torch.where(curv > 0, nz / (2.0 * curv), hi)
         accept = eta <= eta_bar
@@ -227,3 +281,26 @@ def pdhg_chunk_split(A, b, c, l, u, eq, x, y, Ax, xs, ys, wsum, eta, omega,
         y[None], Ax[None], xs[None], ys[None], s(wsum), s(eta), s(omega),
         s(k), s(opnorm), chunk, C)
     return tuple(v[0] for v in out)
+
+
+def halpern_chunk_split(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa, omega, k,
+                        step, C: int, chunk: int = 64):
+    """K4's rank decomposition: ``halpern_chunk_plain`` with A'y taken from
+    C ranks' partials in rank order.  Returns (x, y, Ax, k + chunk)."""
+    is_eq = eq if eq.dtype == torch.bool else eq > 0
+    omega, step, k = (torch.as_tensor(v, dtype=A.dtype, device=A.device)
+                      for v in (omega, step, k))
+    tau, sigma = step / omega, step * omega
+    rows = split_rows(A.shape[0], C)
+    for _ in range(chunk):
+        aty = _ranked([A[r0:r1].T @ y[r0:r1] for r0, r1 in rows])
+        x_t = torch.minimum(torch.maximum(x - tau * (c - aty), l), u)
+        Ax_t = A @ x_t
+        y_t0 = y + sigma * (b - (2.0 * Ax_t - Ax))
+        y_t = torch.where(is_eq, y_t0, torch.clamp(y_t0, max=0.0))
+        lam = (k + 1.0) / (k + 2.0)
+        x = lam * (2.0 * x_t - x) + (1.0 - lam) * xa
+        y = lam * (2.0 * y_t - y) + (1.0 - lam) * ya
+        Ax = lam * (2.0 * Ax_t - Ax) + (1.0 - lam) * Axa
+        k = k + 1.0
+    return x, y, Ax, k

@@ -36,7 +36,7 @@ def test_library_name_follows_each_source(src_copy, name):
 
 def test_every_kernel_has_a_source_signature_and_counter():
     assert _build.SOURCES == ("sinkhorn.cu", "transport_simplex_mega.cu",
-                              "pdhg_chunk.cu", "pdhg_cluster.cu")
+                              "pdhg_cluster.cu")
     for name in _build.LAUNCHES:
         assert f"scx_{name}" in _build._SIGNATURES
     for src in _build.SOURCES:

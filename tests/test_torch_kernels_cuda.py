@@ -340,26 +340,74 @@ def test_pdhg_chunk_kernel_matches_plain(cuda, shape):
     assert all(torch.equal(a, q) for a, q in zip(k, again))
 
 
-@pytest.mark.parametrize("shape", [(512, 2048), (37, 300)])
-def test_halpern_chunk_kernel_matches_plain(cuda, shape):
-    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
-        halpern_chunk, halpern_chunk_plain)
+def _halpern_args(shape, seed):
+    """Anchors at the start, the iterate 96 plain iterations on; omega =
+    1.3 and the Halpern index 96 for the chunk."""
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import halpern_chunk_plain
 
-    A, b, c, l, u, eq, x, y, Ax, opn = _lp(*shape, seed=47)
+    A, b, c, l, u, eq, x, y, Ax, opn = _lp(*shape, seed=seed)
     step = 0.99 / opn
     x1, y1, Ax1, _ = halpern_chunk_plain(A, b, c, l, u, eq, x, y, Ax, x, y,
                                          Ax, 1.0, 0.0, step, chunk=96)
-    args = (A, b, c, l, u, eq, x1, y1, Ax1, x, y, Ax, 1.3, 96.0, step)
+    return (A, b, c, l, u, eq, x1, y1, Ax1, x, y, Ax, 1.3, 96.0, step)
+
+
+# (shape, cluster size, combine, resident rows per rank), None: the plan's.
+# The plan's layouts, then forced C = 1, 2, 3 and 16 with both combines,
+# with all, part or none of A in shared memory; C > m leaves ranks with no
+# rows, n = 301 is ragged
+@pytest.mark.parametrize("shape,C,scatter,n_res", [
+    ((512, 2048), None, None, None), ((37, 300), None, None, None),
+    ((37, 300), 1, False, None), ((37, 300), 1, True, 20),
+    ((37, 300), 2, False, 0), ((37, 300), 2, True, None),
+    ((37, 300), 3, False, 6), ((37, 300), 3, True, 0),
+    ((37, 300), 16, False, None), ((37, 300), 16, True, 1),
+    ((6, 301), 16, True, None), ((6, 301), 16, False, 0)])
+def test_halpern_chunk_kernel_matches_plain(cuda, shape, C, scatter, n_res):
+    """'<' rows (a quarter), omega != 1, a mid-window Halpern index."""
+    from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+        halpern_chunk, halpern_chunk_plain)
+
+    m, n = shape
+    args = _halpern_args(shape, seed=47)
+    force = {} if C is None else {"cluster_size": C, "scatter": scatter}
+    if n_res is not None:
+        force["smem_budget"] = pc.halpern_cluster_smem_bytes(m, n, C, n_res,
+                                                             scatter)
     n0 = _build.kernel_launch_counts()["halpern_chunk"]
-    k = halpern_chunk(*args)
-    again = halpern_chunk(*args)
+    k = halpern_chunk(*args, **force)
+    plan = dict(pc.LAST_LAUNCH["halpern_chunk"])
+    again = halpern_chunk(*args, **force)
     torch.cuda.synchronize()
     assert _build.kernel_launch_counts()["halpern_chunk"] == n0 + 2
+    if C is not None:
+        assert plan["cluster_size"] == C and plan["scatter"] == scatter
+    if n_res is not None:
+        assert plan["n_res"] == n_res
     p = halpern_chunk_plain(*args)
     for a, q in zip(k[:3], p[:3]):
         assert _rel(a, q) <= CHUNK_RTOL
     assert k[3].item() == float(p[3]) == 160.0
     assert all(torch.equal(a, q) for a, q in zip(k, again))
+
+
+def test_halpern_residency_is_bit_identical(cuda):
+    """At one C and combine, rows in shared memory or read from global
+    memory run the same arithmetic in the same order: identical results."""
+    from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import halpern_chunk
+
+    args = _halpern_args((37, 301), seed=61)
+    for C, scatter in ((3, False), (3, True), (16, True)):
+        ref = halpern_chunk(*args, cluster_size=C, scatter=scatter)
+        assert pc.LAST_LAUNCH["halpern_chunk"]["n_res"] == -(-37 // C)
+        for n_res in (-(-37 // C) // 2, 0):
+            out = halpern_chunk(*args, cluster_size=C, scatter=scatter,
+                                smem_budget=pc.halpern_cluster_smem_bytes(
+                                    37, 301, C, n_res, scatter))
+            assert pc.LAST_LAUNCH["halpern_chunk"]["n_res"] == n_res
+            assert all(torch.equal(a, q) for a, q in zip(out, ref))
 
 
 @pytest.mark.parametrize("shape", [(32, 64, 256), (3, 17, 70),
@@ -489,9 +537,11 @@ def test_pdhg_cluster_residency_is_bit_identical(cuda):
 def test_pdhg_cluster_plan_on_card(cuda):
     """The layouts the wrappers take from the card at the main-path shapes:
     one wave each; K5 at 64 x 256 x 512 in pairs of blocks, at 32 x 64 x
-    256 one block per LP, K3 at 512 x 2048 in the largest cluster."""
+    256 one block per LP, K3 and K4 at 512 x 2048 in the largest cluster
+    with the scatter combine."""
     from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
-    from smart_crossover_tpu_torch.ops.pdhg_chunk import pdhg_chunk
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+        halpern_chunk, pdhg_chunk)
     from smart_crossover_tpu_torch.solvers.pdhg_batched import (
         pdhg_batched_cuda)
 
@@ -507,10 +557,16 @@ def test_pdhg_cluster_plan_on_card(cuda):
     pdhg_chunk(A, b, c, l, u, eq, x, y, Ax, x, y, 0.0, 0.01, 1.0, 0, opn,
                chunk=2)
     assert pc.LAST_LAUNCH["pdhg_chunk"]["cluster_size"] == 16
+    halpern_chunk(A, b, c, l, u, eq, x, y, Ax, x, y, Ax, 1.0, 0.0, 0.01,
+                  chunk=2)
+    plan = pc.LAST_LAUNCH["halpern_chunk"]
+    assert plan["cluster_size"] == 16 and plan["scatter"]
+    assert plan["n_res"] == 25 and plan["waves"] == 1
 
 
 def test_pdhg_cluster_kernels_raise_without_a_plan(cuda):
-    from smart_crossover_tpu_torch.ops.pdhg_chunk import pdhg_chunk
+    from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+        halpern_chunk, pdhg_chunk)
     from smart_crossover_tpu_torch.solvers.pdhg_batched import (
         pdhg_batched_cuda)
 
@@ -524,6 +580,12 @@ def test_pdhg_cluster_kernels_raise_without_a_plan(cuda):
     with pytest.raises(ValueError, match="no cluster layout"):
         pdhg_chunk(A, b, c, l, u, eq, x, y, Ax, x, y, 0.0, 0.01, 1.0, 0, opn,
                    smem_budget=512)
+    with pytest.raises(ValueError, match="no cluster layout"):
+        halpern_chunk(A, b, c, l, u, eq, x, y, Ax, x, y, Ax, 1.0, 0.0, 0.01,
+                      smem_budget=512)
+    with pytest.raises(ValueError, match="no cluster layout"):
+        halpern_chunk(A, b, c, l, u, eq, x, y, Ax, x, y, Ax, 1.0, 0.0, 0.01,
+                      cluster_size=17)
     assert _build.kernel_launch_counts() == n0
 
 

@@ -1,10 +1,11 @@
-"""The cluster PDHG kernel's layout plan and its rank decomposition, on
-the CPU.
+"""The cluster PDHG kernels' layout plans and their rank decompositions,
+on the CPU.
 
-``pdhg_batched_split`` (K5) and ``pdhg_chunk_split`` (K3) are the kernel's
-arithmetic in tensor form: A'y, the curvature and the squared norms from C
-ranks' partials, added in rank order.  In f64 they are held to the plain
-versions at 1e-12 and to the TPU kernels in interpret mode at 1e-9, as
+``pdhg_batched_split`` (K5), ``pdhg_chunk_split`` (K3) and
+``halpern_chunk_split`` (K4) are the kernels' arithmetic in tensor form:
+A'y (and for K3 and K5 the curvature and the squared norms) from C ranks'
+partials, added in rank order.  In f64 they are held to the plain versions
+at 1e-12 and to the TPU kernels in interpret mode at 1e-9, as
 tests/test_torch_pdhg.py and tests/test_torch_pdhg_batched.py hold the
 plain versions.
 """
@@ -15,12 +16,20 @@ import numpy as np
 import pytest
 import torch
 
-from smart_crossover_tpu.ops.pdhg_pallas import get_pdhg_chunk_fn
+from smart_crossover_tpu.ops.pdhg_pallas import (
+    get_halpern_chunk_fn,
+    get_pdhg_chunk_fn,
+)
 from smart_crossover_tpu.solvers import pdhg_batched as jpb
 from smart_crossover_tpu_torch import _build
 from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
-from smart_crossover_tpu_torch.ops.pdhg_chunk import pdhg_chunk_plain
+from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+    halpern_chunk_plain,
+    pdhg_chunk_plain,
+)
 from smart_crossover_tpu_torch.ops.pdhg_cluster import (
+    halpern_chunk_split,
+    halpern_cluster_smem_bytes,
     pdhg_batched_split,
     pdhg_chunk_split,
     pdhg_cluster_plan,
@@ -159,6 +168,13 @@ def test_plan_main_path_shapes():
         assert small["a_in_smem"] == 1.0
     # 200 of them: C = 1 still holds all of A, in two waves
     assert pdhg_cluster_plan(200, 64, 256)["cluster_size"] == 1
+    # K4 at 512 x 2048: as K3, in K4's layout
+    for active in (None, _card):
+        k4 = pdhg_cluster_plan(1, 512, 2048, active=active, halpern=True)
+        assert k4["cluster_size"] == 16 and k4["n_res"] == 25
+        assert k4["rows_in_smem"] == 400 and k4["scatter"]
+        assert k4["smem_bytes"] == halpern_cluster_smem_bytes(512, 2048, 16,
+                                                              25)
 
 
 def test_plan_takes_fewest_waves_first():
@@ -206,6 +222,20 @@ def test_plan_follows_a_lowered_budget():
     assert pdhg_cluster_plan(1, m, n, least)["n_res"] == 0
     with pytest.raises(ValueError, match="no cluster layout"):
         pdhg_cluster_plan(1, m, n, least - 16)
+    # K4's layout, both combines
+    for scatter in (False, True):
+        full = pdhg_cluster_plan(1, m, n, cluster_size=C, halpern=True,
+                                 scatter=scatter)
+        assert full["n_res"] == 13 and full["a_in_smem"] == 1.0
+        for k in (0, 1, 5, 12):
+            budget = halpern_cluster_smem_bytes(m, n, C, k, scatter)
+            plan = pdhg_cluster_plan(1, m, n, budget, cluster_size=C,
+                                     halpern=True, scatter=scatter)
+            assert plan["n_res"] == k
+    least = min(halpern_cluster_smem_bytes(m, n, C, 0) for C in range(1, 17))
+    assert pdhg_cluster_plan(1, m, n, least, halpern=True)["n_res"] == 0
+    with pytest.raises(ValueError, match="no cluster layout"):
+        pdhg_cluster_plan(1, m, n, least - 16, halpern=True)
 
 
 def test_plan_forced_size():
@@ -220,10 +250,21 @@ def test_plan_forced_size():
     # the card refuses every size: no plan, no fallback
     with pytest.raises(ValueError, match="no cluster layout"):
         pdhg_cluster_plan(4, 20, 20, active=lambda C, n: 0)
+    # K4's layout, the combine forced or the plans' (its bytes depend on it)
+    for C, scatter, n_res in ((1, False, 22), (2, False, 23), (2, True, 23),
+                              (8, None, 25), (16, None, 25), (16, False, 24)):
+        plan = pdhg_cluster_plan(1, 512, 2048, cluster_size=C, halpern=True,
+                                 scatter=scatter)
+        assert plan["cluster_size"] == C and plan["n_res"] == n_res
+        assert plan["scatter"] == (C >= 8 if scatter is None else scatter)
+    with pytest.raises(ValueError, match="no cluster layout of size 17"):
+        pdhg_cluster_plan(1, 20, 20, cluster_size=17, halpern=True)
+    with pytest.raises(ValueError, match="no cluster layout"):
+        pdhg_cluster_plan(1, 20, 20, active=lambda C, n: 0, halpern=True)
 
 
 def test_smem_layout_matches_the_source():
-    """The plan's byte count follows the kernel's layout constants."""
+    """The plans' byte counts follow the kernels' layouts."""
     src = (_build.CSRC / "pdhg_cluster.cu").read_text()
     assert re.search(r"constexpr int kThreads = 512;", src)
     assert re.search(r"constexpr int kScratch = 128;", src)
@@ -240,17 +281,109 @@ def test_smem_layout_matches_the_source():
     # padded to 4
     assert pdhg_cluster_smem_bytes(5, 70, 16, 1) == \
         4 * (72 + 2 * 72 + 16 * 8 + 28 * 72 + 8 + 7 * 4 + 128)
+    # K4: 512 x 2048 at C = 16, scatter: 25 rows, x_t, 16 slices of 128
+    # partials, x, xa, c, l, u of the rank's 128 columns, six vectors of 32
+    # rows
+    assert "(scatter ? C * cp + 5 * cp : 3 * np) +" in src
+    assert "(G > 1 ? G * np : 0) + 6 * rp;" in src
+    assert halpern_cluster_smem_bytes(512, 2048, 16, 25) == \
+        4 * (25 * 2048 + 2048 + 16 * 128 + 5 * 128 + 6 * 32)
+    # 256 x 512 at C = 2, all-read: x_t, two partial buffers, 4 row groups,
+    # x, six vectors of 128 rows
+    assert halpern_cluster_smem_bytes(256, 512, 2, 10) == \
+        4 * (10 * 512 + 512 + 2 * 512 + 4 * 512 + 512 + 6 * 128)
+    # n padded to 4 (72): 28 row groups, 16 slices of two quads
+    assert halpern_cluster_smem_bytes(5, 70, 16, 1, scatter=True) == \
+        4 * (72 + 72 + 16 * 8 + 5 * 8 + 28 * 72 + 6 * 4)
+    assert halpern_cluster_smem_bytes(5, 70, 16, 1, scatter=False) == \
+        4 * (72 + 72 + 3 * 72 + 28 * 72 + 6 * 4)
 
 
 def test_one_launch_no_iteration_loop_on_the_host():
-    """Each C entry point launches the iteration kernel once; the old
+    """Each C entry point launches its iteration kernel once; the old
     one-block and cooperative designs are gone."""
     src = (_build.CSRC / "pdhg_cluster.cu").read_text()
     assert src.count("cudaLaunchKernelEx") == 1
     assert "<<<" not in src
-    assert "for (int it = 0; it < a.iters; ++it)" in src   # in the kernel
-    assert src.count("cl.sync();") == 5     # start, A, A2 (scatter), B, exit
-    chunk_src = (_build.CSRC / "pdhg_chunk.cu").read_text()
-    assert "pdhg_chunk_kernel" not in chunk_src
-    assert "scx_pdhg_chunk" not in chunk_src
+    # in the kernels: the adaptive one and the Halpern one
+    assert src.count("for (int it = 0; it < a.iters; ++it)") == 2
+    # adaptive: start, A, A2 (scatter), B, exit; Halpern: start, A, exit,
+    # and A2 (scatter) split into arrive and wait
+    assert src.count("cl.sync();") == 8
+    assert src.count("cl.barrier_arrive();") == 1
+    assert src.count("cl.barrier_wait();") == 1
+    assert not (_build.CSRC / "pdhg_chunk.cu").exists()
     assert not (_build.CSRC / "pdhg_batched.cu").exists()
+    for name in _build.SOURCES:
+        text = (_build.CSRC / name).read_text()
+        assert "cudaLaunchCooperativeKernel" not in text
+        assert "this_grid" not in text
+
+
+# ------------------------------------------------------------------- K4
+
+def _halpern_state(m, n, seed):
+    """_chunk_state's LP with its state and anchors of their own."""
+    (A, b, c, l, u, eq, x, y, Ax, xa, ya), opn = _chunk_state(m, n, seed)
+    ya = 0.1 * ya
+    return (A, b, c, l, u, eq, x, y, Ax, xa, ya, A @ xa), opn
+
+
+@pytest.mark.parametrize("shape,C", [
+    ((12, 40), 1), ((12, 40), 2), ((12, 40), 3), ((20, 37), 16),
+    ((5, 30), 8), ((5, 30), 16)])
+def test_halpern_split_matches_plain_f64(shape, C):
+    """'<' rows, omega != 1, a mid-window k and anchors of their own: one
+    32-iteration chunk."""
+    st, opn = _halpern_state(*shape, seed=24)
+    args = (*_t(*st), 1.3, 40.0, 0.99 / opn)
+    want = halpern_chunk_plain(*args, chunk=32)
+    got = halpern_chunk_split(*args, C, chunk=32)
+    _close(got[:3], want[:3], 1e-12)
+    assert float(got[3]) == float(want[3]) == 72.0
+
+
+@pytest.mark.parametrize("C", [2, 16])
+def test_halpern_split_matches_pallas_interpret(rng, C):
+    """32 Halpern iterations against _halpern_chunk_kernel in interpret
+    mode (the inputs of
+    tests/test_torch_pdhg.py::test_halpern_chunk_matches_pallas)."""
+    m, n = 16, 128
+    A = rng.standard_normal((m, n))
+    b, c = rng.standard_normal(m), rng.standard_normal(n)
+    l, u = np.zeros(n), np.ones(n)
+    eq = (rng.random(m) < 0.5).astype(np.float64)
+    x = np.full(n, 0.5)
+    xa = rng.uniform(0.0, 1.0, n)
+    ya = 0.1 * rng.standard_normal(m)
+    y = 0.1 * rng.standard_normal(m)
+    omega, k, step = 1.3, 5.0, 0.99 / 20.0
+    fn = get_halpern_chunk_fn(m, n, "float64", 32, interpret=True)
+    want = fn(*(jnp.asarray(v) for v in (A, b, c, l, u, eq, x, y, A @ x, xa,
+                                          ya, A @ xa)), omega, k, step)
+    got = halpern_chunk_split(*_t(A, b, c, l, u, eq, x, y, A @ x, xa, ya,
+                                  A @ xa), omega, k, step, C, chunk=32)
+    _close(got[:3], want[:3], 1e-9)
+    assert float(got[3]) == float(want[3]) == k + 32
+
+
+@pytest.mark.parametrize("m,n", [
+    (2, 2), (256, 512), (64, 256), (512, 2048), (17, 70), (5, 70),
+    (1000, 3000), (30, 30)])
+def test_halpern_plan_covers_rows_and_fits(m, n):
+    for active in (None, lambda C, n_res: 132 // C):
+        plan = pdhg_cluster_plan(1, m, n, active=active, halpern=True)
+        C = plan["cluster_size"]
+        ranges = plan["row_ranges"]
+        assert len(ranges) == C
+        assert [r for lo, hi in ranges for r in range(lo, hi)] == \
+            list(range(m))
+        assert plan["n_res"] <= -(-m // C)
+        assert plan["rows_in_smem"] == sum(min(hi - lo, plan["n_res"])
+                                           for lo, hi in ranges)
+        assert plan["smem_bytes"] == halpern_cluster_smem_bytes(
+            m, n, C, plan["n_res"], plan["scatter"])
+        assert plan["smem_bytes"] <= BUDGET
+        if plan["n_res"] < -(-m // C):    # one more resident row would not fit
+            assert halpern_cluster_smem_bytes(
+                m, n, C, plan["n_res"] + 1, plan["scatter"]) > BUDGET
