@@ -1,11 +1,12 @@
 """Helpers of the kernel A/B scripts (scripts/torch_k1_ab.py,
 scripts/torch_k2_ab.py, scripts/torch_pdhg_ab.py): build one CUDA source
 into its own shared library with the package's nvcc flags, report its
-kernels' registers and spills, and time a call as the median of synced
-runs.  Needs a CUDA card and nvcc."""
+kernels' registers and spills and a digest of their machine code, and time
+a call as the median of synced runs.  Needs a CUDA card and nvcc."""
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import re
 import subprocess
 import time
@@ -57,6 +58,29 @@ def ptxas_report(src: Path, out: Path, defines=()) -> dict:
             report[name]["registers"] = int(m.group(1))
             name = None
     return report
+
+
+def sass_digest(obj: Path) -> dict:
+    """A digest of each kernel template instance's machine code in the
+    object file `obj` (``cuobjdump -sass``, addresses and encodings left
+    out), by name as in ``ptxas_report``: equal digests, equal code."""
+    from smart_crossover_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    r = subprocess.run([str(tool), "-sass", str(obj)], capture_output=True,
+                       text=True, check=True)
+    code, name = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : \S*?([a-z_]+_kernel)ILb([01])", line)
+        if m:
+            name = f"{m.group(1)}<{'true' if m.group(2) == '1' else 'false'}>"
+            code[name] = []
+            continue
+        ins = re.sub(r"/\*\s*[0-9a-fx]+\s*\*/", "", line).strip()
+        if name and ins:
+            code[name].append(ins)
+    return {k: hashlib.sha256("\n".join(v).encode()).hexdigest()[:16]
+            for k, v in code.items()}
 
 
 def median_ms(fn, reps):

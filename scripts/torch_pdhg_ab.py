@@ -3,28 +3,38 @@
 (fleet), K3 (adaptive chunk) and K4 (Halpern chunk).
 
     mkdir -p build/pdhg_old
-    for f in pdhg_cluster pdhg_chunk; do git show \\
-        66f4441:smart_crossover_tpu_torch/csrc/$f.cu > build/pdhg_old/$f.cu; done
-    python3 scripts/torch_pdhg_ab.py --old build/pdhg_old [--stamps]
+    git show <commit>:smart_crossover_tpu_torch/csrc/pdhg_cluster.cu \\
+        > build/pdhg_old/pdhg_cluster.cu
+    git show 66f4441:smart_crossover_tpu_torch/csrc/pdhg_chunk.cu \\
+        > build/pdhg_old/pdhg_chunk.cu
+    python3 scripts/torch_pdhg_ab.py --old build/pdhg_old [--stamps] \\
+        [--also SOURCE ...]
 
-`--old` holds that commit's pdhg_cluster.cu (K3 and K5, with the C entry
-points they have now) and pdhg_chunk.cu (K4 as one cooperative launch per
-chunk with two grid syncs per iteration; its entry point takes the
-argument list below).  They are built with the package's nvcc flags into
-build/pdhg_ab/ and run beside the current source (one thread-block cluster
-per LP, A's rows in shared memory) on chip_smoke.py's inputs: K5 at 32 x
-64 x 256 (seed 5, 2000 iterations) and 64 x 256 x 512 (seed 6, 4000
-iterations), K3 at 512 x 2048 (seed 3, one 64-iteration chunk from the
-state 256 plain iterations reach), K4 at 512 x 2048 (seed 3, one chunk from
-the state 128 plain Halpern iterations reach, anchors at the start).  First
-the registers and spills of both sources' kernels (ptxas -v).  Then each
-shape: both versions against the plain version, then turns old, new, new,
-old, each the median of --reps synced runs (K3, K4: of 20 chunks launched
-back to back, per chunk).  Then cluster sizes forced through the plan, with
-both combines (all-read and scatter) at each.  `--stamps` also builds the
-current source with -DSCX_PDHG_STAMPS and prints, for each forced layout,
-clock64 totals per phase of rank 0 of instance 0.  One JSON line per
-measurement, then the card's nvidia-smi line.  Needs a CUDA card and nvcc.
+`--old` holds an earlier pdhg_cluster.cu (K3 and K5, with the C entry
+points they have now) and 66f4441's pdhg_chunk.cu (K4 as one cooperative
+launch per chunk with two grid syncs per iteration; its entry point takes
+the argument list below).  Where the earlier pdhg_cluster.cu has a Halpern
+kernel too (its entry point then takes a combine flag before the stream),
+that K4 runs as the design "prev" with the scatter combine.  They are
+built with the package's nvcc flags into build/pdhg_ab/ and run beside the
+current source (one thread-block cluster per LP, A's rows in shared
+memory) on chip_smoke.py's inputs: K5 at 32 x 64 x 256 (seed 5, 2000
+iterations) and 64 x 256 x 512 (seed 6, 4000 iterations), K3 at 512 x 2048
+(seed 3, one 64-iteration chunk from the state 256 plain iterations
+reach), K4 at 512 x 2048 (seed 3, one chunk from the state 128 plain
+Halpern iterations reach, anchors at the start).  First the registers and
+spills of both sources' kernels (ptxas -v) and digests of their machine
+code (cuobjdump -sass), and the same of each `--also` source (e.g. a third
+commit's pdhg_cluster.cu).  Then each shape: the versions
+against the plain version, then turns old, new, new, old (K4: old, prev,
+new, new, prev, old), each the median of --reps synced runs (K3, K4: of 20
+chunks launched back to back, per chunk).  K4 also times 20 calls of the
+`halpern_chunk` wrapper back to back, per call, host work included.  Then
+cluster sizes forced through the plan, K5 and K3 with both combines
+(all-read and scatter) at each.  `--stamps` also builds the current source
+with -DSCX_PDHG_STAMPS and prints, for each forced layout, clock64 totals
+per phase of rank 0 of instance 0.  One JSON line per measurement, then
+the card's nvidia-smi line.  Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -35,7 +45,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from kernel_ab import REPO, build_shared, median_ms, ptxas_report
+from kernel_ab import REPO, build_shared, median_ms, ptxas_report, sass_digest
 
 sys.path.insert(0, str(REPO))
 
@@ -57,11 +67,17 @@ def build_old(src_dir: Path):
     cl = build_shared(src_dir / "pdhg_cluster.cu", OUT / "libcluster_old.so")
     for fn in ("scx_pdhg_batched", "scx_pdhg_chunk"):
         getattr(cl, fn).argtypes = _build._SIGNATURES[fn]
+    prev = None
+    if "scx_halpern_chunk" in (src_dir / "pdhg_cluster.cu").read_text():
+        # A, b, c, l, u, eq, x, y, ax, xa, ya, axa, scal_in, scal_out, x_out,
+        # y_out, ax_out, m, n, chunk, C, n_res, scatter, stream
+        cl.scx_halpern_chunk.argtypes = [P] * 17 + [I] * 6 + [P]
+        prev = cl
     k4 = build_shared(src_dir / "pdhg_chunk.cu", OUT / "libk4_old.so")
     # A, b, c, l, u, eq, x, y, ax, xa, ya, axa, xt, scal_in, scal_out, m, n,
     # chunk, stream
     k4.scx_halpern_chunk.argtypes = [P] * 15 + [I] * 3 + [P]
-    return cl, k4
+    return cl, k4, prev
 
 
 def build_new(stamps: bool):
@@ -150,7 +166,9 @@ def k4_old(lib, args, bursts=1):
     return x_o, y_o, ax_o, scal_out[1]
 
 
-def k4_new(lib, args, plan, bursts=1):
+def k4_new(lib, args, plan, bursts=1, combine=()):
+    """The cluster design; `combine` (1,) for an earlier build whose entry
+    point takes the combine flag."""
     import torch
 
     from smart_crossover_tpu_torch.ops.pdhg_chunk import _scalars
@@ -167,7 +185,7 @@ def k4_new(lib, args, plan, bursts=1):
             Ax.data_ptr(), xa.data_ptr(), ya.data_ptr(), Axa.data_ptr(),
             scal_in.data_ptr(), scal_out.data_ptr(),
             *(o.data_ptr() for o in outs), m, n, 64, plan["cluster_size"],
-            plan["n_res"], int(plan["scatter"]), stream()), "K4")
+            plan["n_res"], *combine, stream()), "K4")
     return (*outs, scal_out[1])
 
 
@@ -187,7 +205,7 @@ def main() -> int:
     from smart_crossover_tpu_torch import _build
     from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
     from smart_crossover_tpu_torch.ops.pdhg_chunk import (
-        halpern_chunk_plain, pdhg_chunk_plain)
+        halpern_chunk, halpern_chunk_plain, pdhg_chunk_plain)
     from smart_crossover_tpu_torch.solvers.pdhg_batched import (
         _opnorms, pdhg_fixed_batched_plain)
 
@@ -195,6 +213,7 @@ def main() -> int:
     ap.add_argument("--old", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--stamps", action="store_true")
+    ap.add_argument("--also", type=Path, nargs="*", default=[])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_pdhg_ab: no CUDA device", file=sys.stderr)
@@ -205,18 +224,19 @@ def main() -> int:
         print(json.dumps(obj), flush=True)
 
     for design, src in (("old", args.old / "pdhg_cluster.cu"),
-                        ("new", _build.CSRC / "pdhg_cluster.cu")):
-        emit({"ptxas": design, "source": str(src.name),
-              "kernels": ptxas_report(src, OUT / f"ptxas_{design}.o")})
-    old_cl, old4 = build_old(args.old)
+                        ("new", _build.CSRC / "pdhg_cluster.cu"),
+                        *((f"also{i}", s) for i, s in enumerate(args.also))):
+        obj = OUT / f"ptxas_{design}.o"
+        emit({"ptxas": design, "source": str(src),
+              "kernels": ptxas_report(src, obj), "sass": sass_digest(obj)})
+    old_cl, old4, prev4 = build_old(args.old)
     lib = build_new(False)
     stamped = build_new(True) if args.stamps else None
 
-    def plan_for(B, m, n, C=None, halpern=False, scatter=None):
-        active = pc._active_clusters(_build.library(), B, m, n, halpern,
-                                     scatter)
+    def plan_for(B, m, n, C=None, layout=pc.ADAPTIVE):
+        active = pc._active_clusters(_build.library(), layout, B, m, n)
         return pc.pdhg_cluster_plan(B, m, n, active=active, cluster_size=C,
-                                    halpern=halpern, scatter=scatter)
+                                    layout=layout)
 
     def layout(plan):
         return {k: plan[k] for k in ("cluster_size", "n_res", "rows_in_smem",
@@ -314,37 +334,55 @@ def main() -> int:
     x1, y1, Ax1, _ = halpern_chunk_plain(A, b, c, l, u, eq, x, y, Ax, x, y,
                                          Ax, 1.0, 0.0, step, chunk=128)
     hargs = (A, b, c, l, u, eq, x1, y1, Ax1, x, y, Ax, 1.0, 128.0, step)
-    plan = plan_for(1, m, n, halpern=True)
+    plan = plan_for(1, m, n, layout=pc.HALPERN)
     p = halpern_chunk_plain(*hargs)
     k = k4_new(lib, hargs, plan)
     again = k4_new(lib, hargs, plan)
     old = k4_old(old4, hargs)
+    check_rec = {"new": rel(k[:3], p[:3]), "old": rel(old[:3], p[:3]),
+                 "k_new": k[3].item(), "k_old": old[3].item()}
+    if prev4 is not None:
+        prev = k4_new(prev4, hargs, plan, combine=(1,))
+        check_rec.update(prev=rel(prev[:3], p[:3]),
+                         prev_bit_identical=all(torch.equal(a, q)
+                                                for a, q in zip(k, prev)))
     emit({"kernel": "K4", "shape": [m, n], "check": "vs plain, one chunk",
-          "new": rel(k[:3], p[:3]), "old": rel(old[:3], p[:3]),
-          "k_new": k[3].item(), "k_old": old[3].item(),
+          **check_rec,
           "repeat_bit_identical": all(torch.equal(a, q)
                                       for a, q in zip(k, again)),
           "plan": layout(plan)})
-    turns = [("old", lambda: k4_old(old4, hargs, CHUNK_BURST)),
-             ("new", lambda: k4_new(lib, hargs, plan, CHUNK_BURST))]
+    turns = [("old", lambda: k4_old(old4, hargs, CHUNK_BURST))]
+    if prev4 is not None:
+        turns.append(("prev", lambda: k4_new(prev4, hargs, plan, CHUNK_BURST,
+                                             combine=(1,))))
+    turns.append(("new", lambda: k4_new(lib, hargs, plan, CHUNK_BURST)))
     for name, fn in turns + turns[::-1]:
         ms, times = per_chunk(fn)
         emit({"kernel": "K4", "shape": [m, n], "design": name,
               "ms_per_chunk": ms, "all_ms": times})
+
+    def wrapper_burst():
+        for _ in range(CHUNK_BURST):
+            out = halpern_chunk(*hargs)
+        return out
+
+    wrapper_burst()
+    ms, times = per_chunk(wrapper_burst)
+    emit({"kernel": "K4", "shape": [m, n], "design": "new, wrapper",
+          "ms_per_call": ms, "all_ms": times})
     for C in (1, 2, 4, 8, 12, 16):
-        for scatter in (False, True):
-            fp = plan_for(1, m, n, C, halpern=True, scatter=scatter)
-            ms, times = per_chunk(lambda: k4_new(lib, hargs, fp, CHUNK_BURST))
-            out = k4_new(lib, hargs, fp)
-            rec = {"kernel": "K4", "shape": [m, n], "ms_per_chunk": ms,
-                   "all_ms": times, "rel_vs_plain": rel(out[:3], p[:3]),
-                   **layout(fp)}
-            if stamped is not None:
-                k4_new(stamped, hargs, fp)
-                torch.cuda.synchronize()
-                rec["stamp_cycles"] = stamps_of(stamped, "scx_halpern_stamps",
-                                                HALPERN_PHASES)
-            emit(rec)
+        fp = plan_for(1, m, n, C, layout=pc.HALPERN)
+        ms, times = per_chunk(lambda: k4_new(lib, hargs, fp, CHUNK_BURST))
+        out = k4_new(lib, hargs, fp)
+        rec = {"kernel": "K4", "shape": [m, n], "ms_per_chunk": ms,
+               "all_ms": times, "rel_vs_plain": rel(out[:3], p[:3]),
+               **layout(fp)}
+        if stamped is not None:
+            k4_new(stamped, hargs, fp)
+            torch.cuda.synchronize()
+            rec["stamp_cycles"] = stamps_of(stamped, "scx_halpern_stamps",
+                                            HALPERN_PHASES)
+        emit(rec)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,"
                           "clocks.max.sm", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(),

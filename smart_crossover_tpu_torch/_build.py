@@ -53,8 +53,8 @@ _SIGNATURES = {
     # ax_out, m, n, chunk, C, n_res, scatter, stream
     "scx_pdhg_chunk": [_P] * 16 + [_I] * 6 + [_P],
     # A, b, c, l, u, eq, x, y, ax, xa, ya, axa, scal_in, scal_out, x_out,
-    # y_out, ax_out, m, n, chunk, C, n_res, scatter, stream
-    "scx_halpern_chunk": [_P] * 17 + [_I] * 6 + [_P],
+    # y_out, ax_out, m, n, chunk, C, n_res, stream
+    "scx_halpern_chunk": [_P] * 17 + [_I] * 5 + [_P],
     # A, b, c, l, u, opnorms, x, y, x_avg, y_avg, B, m, n, iters, C, n_res,
     # scatter, stream
     "scx_pdhg_batched": [_P] * 10 + [_I] * 7 + [_P],
@@ -62,9 +62,9 @@ _SIGNATURES = {
     "scx_pdhg_cluster_smem_bytes": [_I] * 4,
     # B, m, n, C, n_res -> resident clusters (or -error)
     "scx_pdhg_cluster_max_clusters": [_I] * 5,
-    # m, n, C, n_res, scatter -> bytes of dynamic shared memory
-    "scx_halpern_cluster_smem_bytes": [_I] * 5,
-    # m, n, C, n_res, scatter -> resident clusters (or -error)
+    # m, n, C, n_res -> bytes of dynamic shared memory
+    "scx_halpern_cluster_smem_bytes": [_I] * 4,
+    # B, m, n, C, n_res -> resident clusters (or -error)
     "scx_halpern_cluster_max_clusters": [_I] * 5,
 }
 

@@ -595,31 +595,25 @@ __global__ void __launch_bounds__(kThreads, 1) pdhg_cluster_kernel(const Args a)
 //   x <- lam (2 x_t - x) + (1 - lam) xa, y and A x alike, k <- k + 1.
 // It is pdhg_cluster_kernel's iteration without the step rule: no accept
 // decision, no scalar reductions, no running sums.  Same rows per rank,
-// residency, column pass, combines and row pass; what differs:
+// residency, column pass and row pass, and the scatter combine at every C
+// (forced runs on an H100 never put the all-read ahead for this kernel);
+// what differs:
 //   vectors  y, A x, b, the '=' flags, ya, A xa live only in the rank that
-//            owns their rows, updated in place by the row pass.  x_t is
-//            replicated.  All-read: x is replicated too (every rank updates
-//            all of it alike) and c, l, u, xa are read from global memory;
-//            scatter: x, xa, c, l, u of the rank's column slice only, in
-//            shared memory;
-//   barriers per iteration, from the exchanges:
-//     all-read  one cluster barrier, A (partials posted).  Each rank writes
-//               only its own partial buffer, double-buffered by iteration
-//               parity: the buffer a rank writes in iteration i + 2 was last
-//               read by the others before they arrived at A of i + 1, which
-//               the writer has passed.  Block barriers order x_t before the
-//               row pass and y before the next column pass;
-//     scatter   two, A (partials posted) and A2 (x_t quads delivered).  A
-//               rank pushes into an owner's partial buffer only after A2,
-//               and the owner read that buffer before arriving at A2; it
-//               pushes x_t into the other ranks only after the next A, and
-//               they read x_t in their row pass, before arriving there.  A2
-//               is split: arrive after the pushes, the x update of the owned
-//               quads, then wait.  A block barrier orders y before the next
-//               column pass;
-//   (block barriers where C = 1).  A'y is summed in rank order as in
-// pdhg_cluster_kernel, so repeated launches are bit-identical and at a
-// fixed C and combine the residency of the rows does not change a bit.
+//            owns their rows, updated in place by the row pass; x, xa, c,
+//            l, u of the rank's column slice only, in shared memory; x_t is
+//            replicated;
+//   barriers two cluster barriers per iteration, from the exchanges: A
+//            (partials posted) and A2 (x_t quads delivered).  A rank pushes
+//            into an owner's partial buffer only after A2, and the owner
+//            read that buffer before arriving at A2; it pushes x_t into the
+//            other ranks only after the next A, and they read x_t in their
+//            row pass, before arriving there.  A2 is split: arrive after
+//            the pushes, the x update of the owned quads, then wait.  A
+//            block barrier orders y before the next column pass (block
+//            barriers for A and A2 where C = 1).
+// A'y is summed in rank order as in pdhg_cluster_kernel, so repeated
+// launches are bit-identical and at a fixed C the residency of the rows
+// does not change a bit.
 struct HalpernArgs {
   const float* A;        // (m, n)
   const float* b;        // (m)
@@ -638,7 +632,7 @@ struct HalpernArgs {
   float* y_out;
   float* ax_out;
   float* scal_out;       // omega, k + iters, step
-  int m, n, C, n_res, iters, scatter;
+  int m, n, C, n_res, iters;
 };
 
 // x_t of a column quad from its x, (A'y), c, l, u (0 on padded columns,
@@ -679,19 +673,16 @@ __global__ void __launch_bounds__(kThreads, 1) halpern_cluster_kernel(const Halp
   // column pass: thread (q4, r) = (tid % n4, tid / n4), G row groups
   const int G = n4 >= kThreads ? 1 : kThreads / n4;
   const int r_own = n4 >= kThreads ? 0 : tid / n4;
-  const bool scatter = a.scatter != 0;
 
   // dynamic shared memory (ops/pdhg_cluster.py::halpern_cluster_smem_bytes)
   float* Ms = smem;                                 // n_res rows of np
   float* xt = Ms + (size_t)a.n_res * np;            // x_t, replicated
-  // all-read: this rank's partial A'y, two buffers of np by iteration
-  // parity; scatter: the C ranks' partials of this rank's column quads
-  float* pcol = xt + np;
-  float* red = pcol + (scatter ? C * cp : 2 * np);  // row-group partials
-  // all-read: x (np), replicated; scatter: x, xa, c, l, u of the rank's
-  // column slice (5 x cp)
-  float* xv = red + (G > 1 ? G * np : 0);
-  float* yv = xv + (scatter ? 5 * cp : np);         // y of the owned rows
+  float* pcol = xt + np;                            // the C ranks' partials of
+                                                    // this rank's column quads
+  float* red = pcol + C * cp;                       // row-group partials
+  float* xv = red + (G > 1 ? G * np : 0);           // x, xa, c, l, u of the
+                                                    // rank's column slice
+  float* yv = xv + 5 * cp;                          // y of the owned rows
   float* axv = yv + rp;                             // A x
   float* bv = axv + rp;                             // b
   float* eqv = bv + rp;                             // 1 on '=' rows
@@ -723,20 +714,16 @@ __global__ void __launch_bounds__(kThreads, 1) halpern_cluster_kernel(const Halp
       }
   }
   __pipeline_commit();
-  for (int j = tid; j < np; j += kThreads) {
-    xt[j] = 0.0f;
-    if (!scatter) xv[j] = j < n ? a.x_in[j] : 0.0f;
+  for (int j = tid; j < np; j += kThreads) xt[j] = 0.0f;
+  for (int t = tid; t < cp; t += kThreads) {
+    const int j = c0 + t;
+    const bool in = j < c1;
+    xv[t] = in ? a.x_in[j] : 0.0f;
+    xv[cp + t] = in ? a.xa[j] : 0.0f;
+    xv[2 * cp + t] = in ? a.c[j] : 0.0f;
+    xv[3 * cp + t] = in ? a.l[j] : 0.0f;
+    xv[4 * cp + t] = in ? a.u[j] : 0.0f;
   }
-  if (scatter)
-    for (int t = tid; t < cp; t += kThreads) {
-      const int j = c0 + t;
-      const bool in = j < c1;
-      xv[t] = in ? a.x_in[j] : 0.0f;
-      xv[cp + t] = in ? a.xa[j] : 0.0f;
-      xv[2 * cp + t] = in ? a.c[j] : 0.0f;
-      xv[3 * cp + t] = in ? a.l[j] : 0.0f;
-      xv[4 * cp + t] = in ? a.u[j] : 0.0f;
-    }
   for (int li = tid; li < rp; li += kThreads) {
     const bool in = li < nr;
     const int i = r0 + li;
@@ -759,11 +746,10 @@ __global__ void __launch_bounds__(kThreads, 1) halpern_cluster_kernel(const Halp
 
   for (int it = 0; it < a.iters; ++it) {
     const float lam = (k + 1.0f) / (k + 2.0f);
-    float4* pc4 = pcol4 + (scatter ? 0 : (it & 1) * n4);
 
-    // ---- column pass: this rank's partial A'y, pdhg_cluster_kernel's
-    // loop written out again: a shared function would move that kernel's
-    // registers and spills, which sit at the 128-register cap
+    // ---- column pass: this rank's partial A'y, pushed to the quads'
+    // owners; pdhg_cluster_kernel's loop written out again: one inline
+    // function for both moved that kernel's spills and time (PERF.md)
     if (r_own < G)
       for (int q4 = tid - r_own * n4; q4 < n4; q4 += kThreads) {
         const int lg = r_own < nres ? r_own + G * ((nres - r_own + G - 1) / G) : r_own;
@@ -784,7 +770,7 @@ __global__ void __launch_bounds__(kThreads, 1) halpern_cluster_kernel(const Halp
 #pragma unroll 4
         for (int li = lg + kPrefetch * G; li < nr; li += G)
           p = fma4(load4(Ag + (size_t)li * n, 4 * q4, n, gvec), yv[li], p);
-        if (G == 1) post_partial(cl, pc4, q4, p, a.scatter, rank, n4, C, cq);
+        if (G == 1) post_partial(cl, pcol4, q4, p, 1, rank, n4, C, cq);
         else red4[r_own * n4 + q4] = p;
       }
     if (G > 1) {
@@ -792,7 +778,7 @@ __global__ void __launch_bounds__(kThreads, 1) halpern_cluster_kernel(const Halp
       for (int q4 = tid; q4 < n4; q4 += kThreads) {
         float4 p = red4[q4];
         for (int r = 1; r < G; ++r) p = add4(p, red4[r * n4 + q4]);
-        post_partial(cl, pc4, q4, p, a.scatter, rank, n4, C, cq);
+        post_partial(cl, pcol4, q4, p, 1, rank, n4, C, cq);
       }
     }
     SCX_STAMP(1);
@@ -800,41 +786,25 @@ __global__ void __launch_bounds__(kThreads, 1) halpern_cluster_kernel(const Halp
     else __syncthreads();
     SCX_STAMP(2);
 
-    // ---- combine: A'y in rank order, x_t, and the Halpern step of x
-    if (scatter) {
-      // the rank's quads from its own shared memory, each x_t stored into
-      // every rank
-      for (int q4 = q0 + tid; q4 < q1; q4 += kThreads) {
-        const int t4 = q4 - q0;
-        float4 s = pc4[t4];
-        for (int q = 1; q < C; ++q) s = add4(s, pc4[q * cq + t4]);
-        const float4 v = clip_step4(xv4[t4], s, xv4[2 * cq + t4], xv4[3 * cq + t4],
-                                    xv4[4 * cq + t4], tau);
-        xt4[q4] = v;
-        for (int d = 1; d < C; ++d) cl.map_shared_rank(xt4, (unsigned)((rank + d) % C))[q4] = v;
-      }
-      SCX_STAMP(3);
-      if (C > 1) cl.barrier_arrive();            // A2: x_t quads delivered
-      for (int q4 = q0 + tid; q4 < q1; q4 += kThreads) {
-        const int t4 = q4 - q0;
-        xv4[t4] = halpern4(lam, xt4[q4], xv4[t4], xv4[cq + t4]);
-      }
-      if (C > 1) cl.barrier_wait();
-      else __syncthreads();
-    } else {
-      // every quad from the C ranks' partials; x replicated
-      for (int q4 = tid; q4 < n4; q4 += kThreads) {
-        float4 s = cl.map_shared_rank(pc4, 0u)[q4];
-        for (int q = 1; q < C; ++q) s = add4(s, cl.map_shared_rank(pc4, (unsigned)q)[q4]);
-        const int j = 4 * q4;
-        const float4 v = clip_step4(xv4[q4], s, load4(a.c, j, n, false), load4(a.l, j, n, false),
-                                    load4(a.u, j, n, false), tau);
-        xt4[q4] = v;
-        xv4[q4] = halpern4(lam, v, xv4[q4], load4(a.xa, j, n, false));
-      }
-      SCX_STAMP(3);
-      __syncthreads();                           // x_t complete
+    // ---- combine: the rank's quads, A'y in rank order from its own shared
+    // memory, x_t stored into every rank, then the Halpern step of x
+    for (int q4 = q0 + tid; q4 < q1; q4 += kThreads) {
+      const int t4 = q4 - q0;
+      float4 s = pcol4[t4];
+      for (int q = 1; q < C; ++q) s = add4(s, pcol4[q * cq + t4]);
+      const float4 v = clip_step4(xv4[t4], s, xv4[2 * cq + t4], xv4[3 * cq + t4],
+                                  xv4[4 * cq + t4], tau);
+      xt4[q4] = v;
+      for (int d = 1; d < C; ++d) cl.map_shared_rank(xt4, (unsigned)((rank + d) % C))[q4] = v;
     }
+    SCX_STAMP(3);
+    if (C > 1) cl.barrier_arrive();              // A2: x_t quads delivered
+    for (int q4 = q0 + tid; q4 < q1; q4 += kThreads) {
+      const int t4 = q4 - q0;
+      xv4[t4] = halpern4(lam, xt4[q4], xv4[t4], xv4[cq + t4]);
+    }
+    if (C > 1) cl.barrier_wait();
+    else __syncthreads();
     SCX_STAMP(4);
 
     // ---- row pass: A x_t, y_t, and the Halpern step of y and A x of the
@@ -865,7 +835,7 @@ __global__ void __launch_bounds__(kThreads, 1) halpern_cluster_kernel(const Halp
   }
 
   // ---- outputs: the owned column slice and rows
-  for (int j = c0 + tid; j < c1; j += kThreads) a.x_out[j] = xv[scatter ? j - c0 : j];
+  for (int j = c0 + tid; j < c1; j += kThreads) a.x_out[j] = xv[j - c0];
   for (int li = tid; li < nr; li += kThreads) {
     a.y_out[r0 + li] = yv[li];
     a.ax_out[r0 + li] = axv[li];
@@ -897,13 +867,13 @@ size_t smem_bytes(int m, int n, int C, int n_res) {
 
 // Bytes of dynamic shared memory of one block of the Halpern kernel
 // (ops/pdhg_cluster.py::halpern_cluster_smem_bytes).
-size_t halpern_smem_bytes(int m, int n, int C, int n_res, int scatter) {
+size_t halpern_smem_bytes(int m, int n, int C, int n_res) {
   const size_t np = ((size_t)n + 3) & ~(size_t)3, n4 = np / 4;
   const size_t G = n4 >= (size_t)kThreads ? 1 : kThreads / n4;
   const size_t rp = ((size_t)(m + C - 1) / C + 3) & ~(size_t)3;
   const size_t cp = 4 * ((n4 + C - 1) / C);
-  const size_t floats = (size_t)n_res * np + np + (scatter ? C * cp + 5 * cp : 3 * np) +
-                        (G > 1 ? G * np : 0) + 6 * rp;
+  const size_t floats = (size_t)n_res * np + np + C * cp + (G > 1 ? G * np : 0) + 5 * cp +
+                        6 * rp;
   return 4 * floats;
 }
 
@@ -1003,14 +973,13 @@ extern "C" int scx_pdhg_cluster_max_clusters(int B, int m, int n, int C, int n_r
   return max_clusters(kernel_for((n & 3) == 0), B, C, smem_bytes(m, n, C, n_res));
 }
 
-extern "C" int scx_halpern_cluster_smem_bytes(int m, int n, int C, int n_res, int scatter) {
-  return (int)halpern_smem_bytes(m, n, C, n_res, scatter);
+extern "C" int scx_halpern_cluster_smem_bytes(int m, int n, int C, int n_res) {
+  return (int)halpern_smem_bytes(m, n, C, n_res);
 }
 
-// The same for one Halpern cluster.
-extern "C" int scx_halpern_cluster_max_clusters(int m, int n, int C, int n_res, int scatter) {
-  return max_clusters(halpern_kernel_for((n & 3) == 0), 1, C,
-                      halpern_smem_bytes(m, n, C, n_res, scatter));
+// The same for the Halpern kernel.
+extern "C" int scx_halpern_cluster_max_clusters(int B, int m, int n, int C, int n_res) {
+  return max_clusters(halpern_kernel_for((n & 3) == 0), B, C, halpern_smem_bytes(m, n, C, n_res));
 }
 
 // K5: `iters` iterations for each of B equality LPs from x0 = clip(0, l, u),
@@ -1051,14 +1020,13 @@ extern "C" int scx_halpern_chunk(const float* A, const float* b, const float* c,
                                  const float* y_in, const float* ax_in, const float* xa,
                                  const float* ya, const float* axa, const float* scal_in,
                                  float* scal_out, float* x_out, float* y_out, float* ax_out,
-                                 int m, int n, int chunk, int C, int n_res, int scatter,
-                                 void* stream_ptr) {
+                                 int m, int n, int chunk, int C, int n_res, void* stream_ptr) {
   if (C < 1 || C > 16) return (int)cudaErrorInvalidValue;
-  const HalpernArgs a = {A,     b,     c,      l,        u, eq, x_in, y_in,  ax_in, xa,    ya,
-                         axa,   scal_in, x_out, y_out, ax_out, scal_out, m, n, C, n_res, chunk,
-                         scatter};
+  const HalpernArgs a = {A,       b,        c,     l,     u,      eq,       x_in, y_in,
+                         ax_in,   xa,       ya,    axa,   scal_in, x_out,   y_out, ax_out,
+                         scal_out, m,       n,     C,     n_res,  chunk};
   return launch_cluster(halpern_kernel_for(global_vec(A, n)), a, 1,
-                        halpern_smem_bytes(m, n, C, n_res, scatter), stream_ptr);
+                        halpern_smem_bytes(m, n, C, n_res), stream_ptr);
 }
 
 #ifdef SCX_PDHG_STAMPS

@@ -21,7 +21,7 @@ kernel): a thread-block cluster of up to 16 blocks holds the rows of A in
 shared memory for the chunk; ``ops/pdhg_cluster.py::pdhg_cluster_plan``
 picks the layout.  ``pdhg_chunk`` takes two cluster barriers per iteration
 (three with the scatter combine), ``halpern_chunk``, which has no step
-rule, one (two with the scatter).  The TPU's (8, 128) padding and VMEM gate
+rule and always combines by the scatter, two.  The TPU's (8, 128) padding and VMEM gate
 (``pad_lp_for_pallas``, ``pdhg_pallas_ok``) have no counterpart: the
 kernels take any (m, n).  A CUDA tensor launches the kernel or raises; a
 CPU tensor runs the plain version.
@@ -32,7 +32,11 @@ import torch
 
 from smart_crossover_tpu_torch import _build
 from smart_crossover_tpu_torch.config import SMEM_PER_BLOCK
-from smart_crossover_tpu_torch.ops.pdhg_cluster import cluster_plan_on_card
+from smart_crossover_tpu_torch.ops.pdhg_cluster import (
+    ADAPTIVE,
+    HALPERN,
+    cluster_plan_on_card,
+)
 
 
 def _as_scalar(v, like: torch.Tensor) -> torch.Tensor:
@@ -130,8 +134,8 @@ def _pdhg_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xs, ys,
                      cluster_size):
     m, n, eq = _vectors("pdhg_chunk", A, eq, b=b, c=c, l=l, u=u, x=x, y=y,
                         Ax=Ax, xs=xs, ys=ys)
-    lib, plan = cluster_plan_on_card("pdhg_chunk", A, 1, m, n, smem_budget,
-                                     cluster_size)
+    lib, plan = cluster_plan_on_card("pdhg_chunk", ADAPTIVE, A, 1, m, n,
+                                     smem_budget, cluster_size)
     xs_o, ys_o = xs.clone(), ys.clone()
     scal_in = _scalars(A, wsum, eta, omega, k, opnorm)
     scal_out = torch.zeros_like(scal_in)
@@ -153,12 +157,11 @@ def _pdhg_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xs, ys,
 
 
 def _halpern_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,
-                        omega, k, step, chunk, smem_budget, cluster_size,
-                        scatter):
+                        omega, k, step, chunk, smem_budget, cluster_size):
     m, n, eq = _vectors("halpern_chunk", A, eq, b=b, c=c, l=l, u=u, x=x,
                         y=y, Ax=Ax, xa=xa, ya=ya, Axa=Axa)
-    lib, plan = cluster_plan_on_card("halpern_chunk", A, 1, m, n,
-                                     smem_budget, cluster_size, scatter)
+    lib, plan = cluster_plan_on_card("halpern_chunk", HALPERN, A, 1, m, n,
+                                     smem_budget, cluster_size)
     scal_in = _scalars(A, omega, k, step)
     scal_out = torch.zeros_like(scal_in)
     x_o, y_o, ax_o = torch.empty_like(x), torch.empty_like(y), \
@@ -171,8 +174,7 @@ def _halpern_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,
             Ax.data_ptr(), xa.data_ptr(), ya.data_ptr(), Axa.data_ptr(),
             scal_in.data_ptr(), scal_out.data_ptr(), x_o.data_ptr(),
             y_o.data_ptr(), ax_o.data_ptr(), m, n, int(chunk),
-            plan["cluster_size"], plan["n_res"], int(plan["scatter"]),
-            stream)
+            plan["cluster_size"], plan["n_res"], stream)
     _build.check(err, "scx_halpern_chunk")
     _build.LAUNCHES["halpern_chunk"] += 1
     return x_o, y_o, ax_o, scal_out[1]
@@ -207,7 +209,7 @@ def pdhg_chunk(A, b, c, l, u, eq, x, y, Ax, xs, ys,
 def halpern_chunk(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,
                   omega, k, step, chunk: int = 64, *,
                   smem_budget: int = SMEM_PER_BLOCK,
-                  cluster_size: int | None = None, scatter=None):
+                  cluster_size: int | None = None):
     """``chunk`` reflected-Halpern PDHG iterations around the anchor
     (xa, ya, Axa).
 
@@ -215,16 +217,16 @@ def halpern_chunk(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,
         A: (m, n); b, eq, y, Ax, ya, Axa: (m,); c, l, u, x, xa: (n,)
             tensors.  eq is 1.0 (or True) on '=' rows.
         omega, k, step: scalars (numbers or 0-d tensors).
-        smem_budget, cluster_size, scatter: reach ``pdhg_cluster_plan``
-            (tests and timing scripts force layouts and the combine with
-            them); a layout that does not fit raises.
+        smem_budget, cluster_size: reach ``pdhg_cluster_plan`` (tests and
+            timing scripts force layouts with them); a layout that does
+            not fit raises.
 
     Returns (x, y, Ax, k + chunk).
     """
     if A.is_cuda:
         return _halpern_chunk_cuda(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,
                                    omega, k, step, chunk, smem_budget,
-                                   cluster_size, scatter)
+                                   cluster_size)
     if A.device.type != "cpu":
         raise ValueError(f"halpern_chunk: no kernel for {A.device}")
     return halpern_chunk_plain(A, b, c, l, u, eq, x, y, Ax, xa, ya, Axa,

@@ -17,11 +17,14 @@ dy.(A x_c - A x), |dx|^2 over the rank's column slice (``column_slices``),
 |dy|^2) in rank order, so every rank takes the same step decision; the
 Halpern kernel has no step rule and no scalar partials.
 
-``pdhg_cluster_plan`` picks C and the layout of either kernel;
+``pdhg_cluster_plan`` picks C and the layout of the kernel whose
+``Layout`` (``ADAPTIVE`` or ``HALPERN``) its caller passes;
 ``pdhg_batched_split``, ``pdhg_chunk_split`` and ``halpern_chunk_split``
 are the rank decompositions in tensor form, for the tests.
 """
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -31,20 +34,12 @@ from smart_crossover_tpu_torch.config import SMEM_PER_BLOCK, SMS, split_rows
 _THREADS = 512           # kThreads in the CUDA source
 _SCRATCH_FLOATS = 128    # kScratch: the warps', the cluster's and the ranks' sums
 _CLUSTER_SIZES = tuple(range(1, 17))   # above 8: non-portable sizes
-# the plans' combine: the scatter from this cluster size on, the all-read
-# below (on an H100 the scatter won at C = 8, 12 and 16 and lost at C <= 4)
-_SCATTER_FROM = 8
 
 # plan of each wrapper's last launch, with the card's answer to how many of
 # its clusters can be resident at once (read by chip_smoke.py)
 LAST_LAUNCH: dict = {"pdhg_batched": {}, "pdhg_chunk": {}, "halpern_chunk": {}}
 _MAX_ACTIVE: dict = {}
-
-
-def _scatter(C: int, scatter) -> bool:
-    """The combine at cluster size C: ``scatter`` where given, else the
-    plans' rule."""
-    return C >= _SCATTER_FROM if scatter is None else bool(scatter)
+_PLANS: dict = {}
 
 
 def pdhg_cluster_smem_bytes(m: int, n: int, C: int, n_res: int) -> int:
@@ -68,27 +63,44 @@ def pdhg_cluster_smem_bytes(m: int, n: int, C: int, n_res: int) -> int:
     return 4 * floats
 
 
-def halpern_cluster_smem_bytes(m: int, n: int, C: int, n_res: int,
-                               scatter=None) -> int:
+def halpern_cluster_smem_bytes(m: int, n: int, C: int, n_res: int) -> int:
     """Dynamic shared memory of one block of the Halpern kernel
     (``halpern_smem_bytes`` in the CUDA source), float32 throughout: n_res
     resident rows of A and x_t (replicated), padded to np = n rounded up to
-    4; the partials of A'y (all-read: two buffers of np, by iteration
-    parity; scatter: C column slices of cp = 4 ceil(np / 4 / C) floats); the
-    row-group partials of the column pass (G x np where G = threads /
-    (np / 4) > 1); x (all-read: np, replicated; scatter: x, xa, c, l and u
-    of the rank's column slice, 5 x cp); y, A x, b, the '=' flags, ya and
-    A xa of ceil(m / C) rows, padded to 4.  ``scatter`` None: the plans'
-    combine for C."""
+    4; the partials of A'y (C column slices of cp = 4 ceil(np / 4 / C)
+    floats); the row-group partials of the column pass (G x np where G =
+    threads / (np / 4) > 1); x, xa, c, l and u of the rank's column slice
+    (5 x cp); y, A x, b, the '=' flags, ya and A xa of ceil(m / C) rows,
+    padded to 4."""
     n4 = -(-n // 4)
     np_ = 4 * n4
     G = 1 if n4 >= _THREADS else _THREADS // n4
     rmax = -(-m // C)
     rp = 4 * -(-rmax // 4)
     cp = 4 * -(-n4 // C)
-    cols = (C + 5) * cp if _scatter(C, scatter) else 3 * np_
-    floats = n_res * np_ + np_ + cols + (G * np_ if G > 1 else 0) + 6 * rp
+    floats = n_res * np_ + np_ + C * cp + (G * np_ if G > 1 else 0) \
+        + 5 * cp + 6 * rp
     return 4 * floats
+
+
+class Layout(NamedTuple):
+    """What a plan needs of one kernel of the CUDA source: its shared-memory
+    byte count, the C entry points that give the same count and the card's
+    resident clusters (both take B, m, n, C, n_res after the count's m),
+    and the cluster size from which it combines by the scatter."""
+    smem_bytes: Callable[[int, int, int, int], int]
+    smem_entry: str
+    clusters_entry: str
+    scatter_from: int
+
+
+# the adaptive kernel (K3, K5): the scatter from 8 blocks on, the all-read
+# below (on an H100 the scatter won at C = 8, 12 and 16 and lost at C <= 4)
+ADAPTIVE = Layout(pdhg_cluster_smem_bytes, "scx_pdhg_cluster_smem_bytes",
+                  "scx_pdhg_cluster_max_clusters", 8)
+# the Halpern kernel (K4): the scatter at every size
+HALPERN = Layout(halpern_cluster_smem_bytes, "scx_halpern_cluster_smem_bytes",
+                 "scx_halpern_cluster_max_clusters", 1)
 
 
 def column_slices(n: int, C: int):
@@ -102,36 +114,29 @@ def column_slices(n: int, C: int):
 def pdhg_cluster_plan(B: int, m: int, n: int,
                       smem_budget: int = SMEM_PER_BLOCK, sms: int = SMS, *,
                       active=None, cluster_size: int | None = None,
-                      halpern: bool = False, scatter=None) -> dict:
+                      layout: Layout = ADAPTIVE) -> dict:
     """How a kernel lays out B LPs of shape (m, n): C blocks per LP.
 
     For each C in 1..16 (or ``cluster_size`` alone), rank q owns rows
     ``split_rows(m, C)[q]`` and keeps the first n_res of them in shared
-    memory, n_res as large as ``smem_budget`` allows under the layout of
-    the adaptive kernel (``pdhg_cluster_smem_bytes``) or, with ``halpern``,
-    of the Halpern kernel (``halpern_cluster_smem_bytes``).  ``active(C,
-    n_res)`` is how many such clusters the card holds at once (the wrappers
-    ask the card; without it, as in the CPU tests, the plan assumes one
-    block per SM of ``sms``), so B LPs run in ceil(B / active) waves.  The
-    plan takes the fewest waves, then the most of A in shared memory, then
-    the smallest C (fewer ranks exchange less).
-    From 8 blocks on the combine is the scatter (see the CUDA source), below
-    the all-read, unless ``scatter`` forces one.  Raises ValueError where
-    no C fits.
+    memory, n_res as large as ``smem_budget`` allows under the kernel's
+    ``layout`` (``ADAPTIVE`` or ``HALPERN``).  ``active(C, n_res)`` is how
+    many such clusters the card holds at once (the wrappers ask the card;
+    without it, as in the CPU tests, the plan assumes one block per SM of
+    ``sms``), so B LPs run in ceil(B / active) waves.  The plan takes the
+    fewest waves, then the most of A in shared memory, then the smallest C
+    (fewer ranks exchange less); the combine is the scatter from the
+    layout's ``scatter_from`` on (see the CUDA source), the all-read below.
+    Raises ValueError where no C fits.
     """
     if cluster_size is not None and cluster_size not in _CLUSTER_SIZES:
         raise ValueError(f"pdhg cluster kernel: no cluster layout of size "
                          f"{cluster_size}; sizes are {_CLUSTER_SIZES}")
-
-    def nbytes(C, n_res):
-        if halpern:
-            return halpern_cluster_smem_bytes(m, n, C, n_res, scatter)
-        return pdhg_cluster_smem_bytes(m, n, C, n_res)
-
+    nbytes = layout.smem_bytes
     np_ = -(-n // 4) * 4
     best = None
     for C in ((cluster_size,) if cluster_size else _CLUSTER_SIZES):
-        fixed = nbytes(C, 0)
+        fixed = nbytes(m, n, C, 0)
         if fixed > smem_budget:
             continue
         rmax = -(-m // C)
@@ -147,56 +152,55 @@ def pdhg_cluster_plan(B: int, m: int, n: int,
             best = (key, {
                 "cluster_size": C, "row_ranges": ranges, "n_res": n_res,
                 "rows_in_smem": resident, "a_in_smem": resident / m,
-                "smem_bytes": nbytes(C, n_res), "max_active_clusters": n_act,
-                "waves": waves, "scatter": _scatter(C, scatter)})
+                "smem_bytes": nbytes(m, n, C, n_res),
+                "max_active_clusters": n_act, "waves": waves,
+                "scatter": C >= layout.scatter_from})
     if best is None:
         raise ValueError(
             f"pdhg cluster kernel: no cluster layout fits {m} x {n} in "
             f"{smem_budget} bytes of shared memory per block (the "
             f"vectors alone take at least "
-            f"{min(nbytes(C, 0) for C in _CLUSTER_SIZES)})")
+            f"{min(nbytes(m, n, C, 0) for C in _CLUSTER_SIZES)})")
     return best[1]
 
 
-def _active_clusters(lib, B, m, n, halpern=False, scatter=None):
-    """The card's count of resident clusters for a layout of either kernel,
+def _active_clusters(lib, layout: Layout, B, m, n):
+    """The card's count of resident clusters for a layout of the kernel,
     queried once per layout and cached; 0 where the card refuses the
     size."""
+    query = getattr(lib, layout.clusters_entry)
+
     def active(C, n_res):
-        sc = _scatter(C, scatter)
-        key = (halpern, m, n, C, n_res, sc if halpern else None)
+        key = (layout.clusters_entry, B, m, n, C, n_res)
         if key not in _MAX_ACTIVE:
-            if halpern:
-                cnt = lib.scx_halpern_cluster_max_clusters(m, n, C, n_res,
-                                                           int(sc))
-            else:
-                cnt = lib.scx_pdhg_cluster_max_clusters(B, m, n, C, n_res)
-            _MAX_ACTIVE[key] = max(cnt, 0)
+            _MAX_ACTIVE[key] = max(query(B, m, n, C, n_res), 0)
         return _MAX_ACTIVE[key]
     return active
 
 
-def cluster_plan_on_card(name: str, A: torch.Tensor, B: int, m: int, n: int,
-                         smem_budget: int, cluster_size, scatter=None):
-    """The plan for a launch on A's card (the Halpern kernel's layout for
-    ``name`` "halpern_chunk"), checked against the source's shared-memory
-    layout and recorded in ``LAST_LAUNCH[name]``; returns the loaded
+def cluster_plan_on_card(name: str, layout: Layout, A: torch.Tensor, B: int,
+                         m: int, n: int, smem_budget: int, cluster_size):
+    """The plan for a launch of the kernel of ``layout`` on A's card,
+    checked against the source's shared-memory count, made once per shape
+    and forcing and recorded in ``LAST_LAUNCH[name]``; returns the loaded
     library and the plan."""
     lib = _build.library()
-    halpern = name == "halpern_chunk"
-    with torch.cuda.device(A.device):
-        plan = pdhg_cluster_plan(
-            B, m, n, smem_budget,
-            active=_active_clusters(lib, B, m, n, halpern, scatter),
-            cluster_size=cluster_size, halpern=halpern, scatter=scatter)
-    C, n_res = plan["cluster_size"], plan["n_res"]
-    smem = (lib.scx_halpern_cluster_smem_bytes(m, n, C, n_res,
-                                               int(plan["scatter"]))
-            if halpern else lib.scx_pdhg_cluster_smem_bytes(m, n, C, n_res))
-    if smem != plan["smem_bytes"]:
-        raise RuntimeError(f"{name}: the kernel lays out {smem} bytes of "
-                           f"shared memory, the plan {plan['smem_bytes']}")
-    LAST_LAUNCH[name] = dict(plan, shape=[B, m, n])
+    key = (name, A.device, B, m, n, smem_budget, cluster_size)
+    plan = _PLANS.get(key)
+    if plan is None:
+        with torch.cuda.device(A.device):
+            plan = pdhg_cluster_plan(
+                B, m, n, smem_budget,
+                active=_active_clusters(lib, layout, B, m, n),
+                cluster_size=cluster_size, layout=layout)
+        smem = getattr(lib, layout.smem_entry)(m, n, plan["cluster_size"],
+                                               plan["n_res"])
+        if smem != plan["smem_bytes"]:
+            raise RuntimeError(f"{name}: the kernel lays out {smem} bytes of "
+                               f"shared memory, the plan "
+                               f"{plan['smem_bytes']}")
+        plan = _PLANS[key] = dict(plan, shape=[B, m, n])
+    LAST_LAUNCH[name] = plan
     return lib, plan
 
 

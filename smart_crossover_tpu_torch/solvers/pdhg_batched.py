@@ -24,7 +24,10 @@ import torch
 from smart_crossover_tpu_torch import _build
 from smart_crossover_tpu_torch.config import (
     SMEM_PER_BLOCK, resolve_device, to_device)
-from smart_crossover_tpu_torch.ops.pdhg_cluster import cluster_plan_on_card
+from smart_crossover_tpu_torch.ops.pdhg_cluster import (
+    ADAPTIVE,
+    cluster_plan_on_card,
+)
 
 
 def _opnorms(A, iters: int = 30):
@@ -104,8 +107,8 @@ def pdhg_batched_cuda(A, b, c, l, u, opnorm, iters: int, *,
     for name, v in (("c", c), ("l", l), ("u", u)):
         _check(name, v, (B, n))
     _check("opnorm", opnorm, (B,))
-    lib, plan = cluster_plan_on_card("pdhg_batched", A, B, m, n, smem_budget,
-                                     cluster_size)
+    lib, plan = cluster_plan_on_card("pdhg_batched", ADAPTIVE, A, B, m, n,
+                                     smem_budget, cluster_size)
     x, xa = torch.empty_like(c), torch.empty_like(c)
     y, ya = torch.empty_like(b), torch.empty_like(b)
     stream = torch.cuda.current_stream(A.device).cuda_stream

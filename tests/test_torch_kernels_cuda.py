@@ -352,18 +352,17 @@ def _halpern_args(shape, seed):
     return (A, b, c, l, u, eq, x1, y1, Ax1, x, y, Ax, 1.3, 96.0, step)
 
 
-# (shape, cluster size, combine, resident rows per rank), None: the plan's.
-# The plan's layouts, then forced C = 1, 2, 3 and 16 with both combines,
-# with all, part or none of A in shared memory; C > m leaves ranks with no
-# rows, n = 301 is ragged
-@pytest.mark.parametrize("shape,C,scatter,n_res", [
-    ((512, 2048), None, None, None), ((37, 300), None, None, None),
-    ((37, 300), 1, False, None), ((37, 300), 1, True, 20),
-    ((37, 300), 2, False, 0), ((37, 300), 2, True, None),
-    ((37, 300), 3, False, 6), ((37, 300), 3, True, 0),
-    ((37, 300), 16, False, None), ((37, 300), 16, True, 1),
-    ((6, 301), 16, True, None), ((6, 301), 16, False, 0)])
-def test_halpern_chunk_kernel_matches_plain(cuda, shape, C, scatter, n_res):
+# (shape, cluster size, resident rows per rank), None: the plan's.  The
+# plan's layouts, then forced C = 1, 2, 3 and 16 with all, part or none of A
+# in shared memory; C > m leaves ranks with no rows, n = 301 is ragged
+@pytest.mark.parametrize("shape,C,n_res", [
+    ((512, 2048), None, None), ((37, 300), None, None),
+    ((37, 300), 1, None), ((37, 300), 1, 20), ((37, 300), 1, 0),
+    ((37, 300), 2, 0), ((37, 300), 2, None), ((37, 300), 2, 9),
+    ((37, 300), 3, 6), ((37, 300), 3, 0),
+    ((37, 300), 16, None), ((37, 300), 16, 1),
+    ((6, 301), 16, None), ((6, 301), 16, 0)])
+def test_halpern_chunk_kernel_matches_plain(cuda, shape, C, n_res):
     """'<' rows (a quarter), omega != 1, a mid-window Halpern index."""
     from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
     from smart_crossover_tpu_torch.ops.pdhg_chunk import (
@@ -371,10 +370,9 @@ def test_halpern_chunk_kernel_matches_plain(cuda, shape, C, scatter, n_res):
 
     m, n = shape
     args = _halpern_args(shape, seed=47)
-    force = {} if C is None else {"cluster_size": C, "scatter": scatter}
+    force = {} if C is None else {"cluster_size": C}
     if n_res is not None:
-        force["smem_budget"] = pc.halpern_cluster_smem_bytes(m, n, C, n_res,
-                                                             scatter)
+        force["smem_budget"] = pc.halpern_cluster_smem_bytes(m, n, C, n_res)
     n0 = _build.kernel_launch_counts()["halpern_chunk"]
     k = halpern_chunk(*args, **force)
     plan = dict(pc.LAST_LAUNCH["halpern_chunk"])
@@ -382,7 +380,7 @@ def test_halpern_chunk_kernel_matches_plain(cuda, shape, C, scatter, n_res):
     torch.cuda.synchronize()
     assert _build.kernel_launch_counts()["halpern_chunk"] == n0 + 2
     if C is not None:
-        assert plan["cluster_size"] == C and plan["scatter"] == scatter
+        assert plan["cluster_size"] == C and plan["scatter"]
     if n_res is not None:
         assert plan["n_res"] == n_res
     p = halpern_chunk_plain(*args)
@@ -393,19 +391,19 @@ def test_halpern_chunk_kernel_matches_plain(cuda, shape, C, scatter, n_res):
 
 
 def test_halpern_residency_is_bit_identical(cuda):
-    """At one C and combine, rows in shared memory or read from global
-    memory run the same arithmetic in the same order: identical results."""
+    """At one C, rows in shared memory or read from global memory run the
+    same arithmetic in the same order: identical results."""
     from smart_crossover_tpu_torch.ops import pdhg_cluster as pc
     from smart_crossover_tpu_torch.ops.pdhg_chunk import halpern_chunk
 
     args = _halpern_args((37, 301), seed=61)
-    for C, scatter in ((3, False), (3, True), (16, True)):
-        ref = halpern_chunk(*args, cluster_size=C, scatter=scatter)
+    for C in (1, 3, 16):
+        ref = halpern_chunk(*args, cluster_size=C)
         assert pc.LAST_LAUNCH["halpern_chunk"]["n_res"] == -(-37 // C)
         for n_res in (-(-37 // C) // 2, 0):
-            out = halpern_chunk(*args, cluster_size=C, scatter=scatter,
+            out = halpern_chunk(*args, cluster_size=C,
                                 smem_budget=pc.halpern_cluster_smem_bytes(
-                                    37, 301, C, n_res, scatter))
+                                    37, 301, C, n_res))
             assert pc.LAST_LAUNCH["halpern_chunk"]["n_res"] == n_res
             assert all(torch.equal(a, q) for a, q in zip(out, ref))
 
@@ -562,6 +560,10 @@ def test_pdhg_cluster_plan_on_card(cuda):
     plan = pc.LAST_LAUNCH["halpern_chunk"]
     assert plan["cluster_size"] == 16 and plan["scatter"]
     assert plan["n_res"] == 25 and plan["waves"] == 1
+    # the same shape again: the plan made once is reused
+    halpern_chunk(A, b, c, l, u, eq, x, y, Ax, x, y, Ax, 1.0, 2.0, 0.01,
+                  chunk=2)
+    assert pc.LAST_LAUNCH["halpern_chunk"] is plan
 
 
 def test_pdhg_cluster_kernels_raise_without_a_plan(cuda):

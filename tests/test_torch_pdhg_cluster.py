@@ -28,6 +28,7 @@ from smart_crossover_tpu_torch.ops.pdhg_chunk import (
     pdhg_chunk_plain,
 )
 from smart_crossover_tpu_torch.ops.pdhg_cluster import (
+    HALPERN,
     halpern_chunk_split,
     halpern_cluster_smem_bytes,
     pdhg_batched_split,
@@ -170,7 +171,7 @@ def test_plan_main_path_shapes():
     assert pdhg_cluster_plan(200, 64, 256)["cluster_size"] == 1
     # K4 at 512 x 2048: as K3, in K4's layout
     for active in (None, _card):
-        k4 = pdhg_cluster_plan(1, 512, 2048, active=active, halpern=True)
+        k4 = pdhg_cluster_plan(1, 512, 2048, active=active, layout=HALPERN)
         assert k4["cluster_size"] == 16 and k4["n_res"] == 25
         assert k4["rows_in_smem"] == 400 and k4["scatter"]
         assert k4["smem_bytes"] == halpern_cluster_smem_bytes(512, 2048, 16,
@@ -222,20 +223,20 @@ def test_plan_follows_a_lowered_budget():
     assert pdhg_cluster_plan(1, m, n, least)["n_res"] == 0
     with pytest.raises(ValueError, match="no cluster layout"):
         pdhg_cluster_plan(1, m, n, least - 16)
-    # K4's layout, both combines
-    for scatter in (False, True):
-        full = pdhg_cluster_plan(1, m, n, cluster_size=C, halpern=True,
-                                 scatter=scatter)
-        assert full["n_res"] == 13 and full["a_in_smem"] == 1.0
-        for k in (0, 1, 5, 12):
-            budget = halpern_cluster_smem_bytes(m, n, C, k, scatter)
-            plan = pdhg_cluster_plan(1, m, n, budget, cluster_size=C,
-                                     halpern=True, scatter=scatter)
-            assert plan["n_res"] == k
+    # K4's layout
+    full = pdhg_cluster_plan(1, m, n, cluster_size=C, layout=HALPERN)
+    assert full["n_res"] == 13 and full["a_in_smem"] == 1.0
+    for k in (0, 1, 5, 12):
+        budget = halpern_cluster_smem_bytes(m, n, C, k)
+        plan = pdhg_cluster_plan(1, m, n, budget, cluster_size=C,
+                                 layout=HALPERN)
+        assert plan["n_res"] == k
+        assert plan["rows_in_smem"] == sum(min(hi - lo, k)
+                                           for lo, hi in plan["row_ranges"])
     least = min(halpern_cluster_smem_bytes(m, n, C, 0) for C in range(1, 17))
-    assert pdhg_cluster_plan(1, m, n, least, halpern=True)["n_res"] == 0
+    assert pdhg_cluster_plan(1, m, n, least, layout=HALPERN)["n_res"] == 0
     with pytest.raises(ValueError, match="no cluster layout"):
-        pdhg_cluster_plan(1, m, n, least - 16, halpern=True)
+        pdhg_cluster_plan(1, m, n, least - 16, layout=HALPERN)
 
 
 def test_plan_forced_size():
@@ -250,17 +251,16 @@ def test_plan_forced_size():
     # the card refuses every size: no plan, no fallback
     with pytest.raises(ValueError, match="no cluster layout"):
         pdhg_cluster_plan(4, 20, 20, active=lambda C, n: 0)
-    # K4's layout, the combine forced or the plans' (its bytes depend on it)
-    for C, scatter, n_res in ((1, False, 22), (2, False, 23), (2, True, 23),
-                              (8, None, 25), (16, None, 25), (16, False, 24)):
-        plan = pdhg_cluster_plan(1, 512, 2048, cluster_size=C, halpern=True,
-                                 scatter=scatter)
+    # K4's layout: the scatter at every size
+    for C, n_res in ((1, 19), (2, 23), (4, 24), (8, 25), (16, 25)):
+        plan = pdhg_cluster_plan(1, 512, 2048, cluster_size=C,
+                                 layout=HALPERN)
         assert plan["cluster_size"] == C and plan["n_res"] == n_res
-        assert plan["scatter"] == (C >= 8 if scatter is None else scatter)
+        assert plan["scatter"]
     with pytest.raises(ValueError, match="no cluster layout of size 17"):
-        pdhg_cluster_plan(1, 20, 20, cluster_size=17, halpern=True)
+        pdhg_cluster_plan(1, 20, 20, cluster_size=17, layout=HALPERN)
     with pytest.raises(ValueError, match="no cluster layout"):
-        pdhg_cluster_plan(1, 20, 20, active=lambda C, n: 0, halpern=True)
+        pdhg_cluster_plan(1, 20, 20, active=lambda C, n: 0, layout=HALPERN)
 
 
 def test_smem_layout_matches_the_source():
@@ -281,22 +281,38 @@ def test_smem_layout_matches_the_source():
     # padded to 4
     assert pdhg_cluster_smem_bytes(5, 70, 16, 1) == \
         4 * (72 + 2 * 72 + 16 * 8 + 28 * 72 + 8 + 7 * 4 + 128)
-    # K4: 512 x 2048 at C = 16, scatter: 25 rows, x_t, 16 slices of 128
-    # partials, x, xa, c, l, u of the rank's 128 columns, six vectors of 32
-    # rows
-    assert "(scatter ? C * cp + 5 * cp : 3 * np) +" in src
-    assert "(G > 1 ? G * np : 0) + 6 * rp;" in src
+    # K4: 512 x 2048 at C = 16: 25 rows, x_t, 16 slices of 128 partials,
+    # x, xa, c, l, u of the rank's 128 columns, six vectors of 32 rows
+    assert "np + C * cp + (G > 1 ? G * np : 0) + 5 * cp +" in src
+    assert "6 * rp;" in src
     assert halpern_cluster_smem_bytes(512, 2048, 16, 25) == \
         4 * (25 * 2048 + 2048 + 16 * 128 + 5 * 128 + 6 * 32)
-    # 256 x 512 at C = 2, all-read: x_t, two partial buffers, 4 row groups,
-    # x, six vectors of 128 rows
+    # 256 x 512 at C = 2: x_t, two 256-column slices of partials, 4 row
+    # groups, five vectors of the rank's 256 columns, six of 128 rows
     assert halpern_cluster_smem_bytes(256, 512, 2, 10) == \
-        4 * (10 * 512 + 512 + 2 * 512 + 4 * 512 + 512 + 6 * 128)
+        4 * (10 * 512 + 512 + 2 * 256 + 4 * 512 + 5 * 256 + 6 * 128)
     # n padded to 4 (72): 28 row groups, 16 slices of two quads
-    assert halpern_cluster_smem_bytes(5, 70, 16, 1, scatter=True) == \
+    assert halpern_cluster_smem_bytes(5, 70, 16, 1) == \
         4 * (72 + 72 + 16 * 8 + 5 * 8 + 28 * 72 + 6 * 4)
-    assert halpern_cluster_smem_bytes(5, 70, 16, 1, scatter=False) == \
-        4 * (72 + 72 + 3 * 72 + 28 * 72 + 6 * 4)
+    # one rank: all np columns are its slice
+    assert halpern_cluster_smem_bytes(5, 70, 1, 5) == \
+        4 * (5 * 72 + 72 + 72 + 28 * 72 + 5 * 72 + 6 * 8)
+
+
+@pytest.mark.parametrize("layout", [pc.ADAPTIVE, pc.HALPERN])
+def test_layout_names_its_entry_points(layout):
+    """Each kernel's layout pairs its byte count with the source's entry
+    points, which take the arguments the plan passes."""
+    fn = layout.smem_bytes.__name__.replace("_smem_bytes", "")
+    assert layout.smem_entry == f"scx_{fn}_smem_bytes"
+    assert layout.clusters_entry == f"scx_{fn}_max_clusters"
+    assert len(_build._SIGNATURES[layout.smem_entry]) == 4       # m, n, C, n_res
+    assert len(_build._SIGNATURES[layout.clusters_entry]) == 5   # and B
+    src = (_build.CSRC / "pdhg_cluster.cu").read_text()
+    assert f'extern "C" int {layout.smem_entry}(int m, int n, int C, ' \
+        f"int n_res)" in src
+    assert f'extern "C" int {layout.clusters_entry}(int B, int m, int n, ' \
+        f"int C, int n_res)" in src
 
 
 def test_one_launch_no_iteration_loop_on_the_host():
@@ -308,7 +324,7 @@ def test_one_launch_no_iteration_loop_on_the_host():
     # in the kernels: the adaptive one and the Halpern one
     assert src.count("for (int it = 0; it < a.iters; ++it)") == 2
     # adaptive: start, A, A2 (scatter), B, exit; Halpern: start, A, exit,
-    # and A2 (scatter) split into arrive and wait
+    # and A2 split into arrive and wait
     assert src.count("cl.sync();") == 8
     assert src.count("cl.barrier_arrive();") == 1
     assert src.count("cl.barrier_wait();") == 1
@@ -372,7 +388,7 @@ def test_halpern_split_matches_pallas_interpret(rng, C):
     (1000, 3000), (30, 30)])
 def test_halpern_plan_covers_rows_and_fits(m, n):
     for active in (None, lambda C, n_res: 132 // C):
-        plan = pdhg_cluster_plan(1, m, n, active=active, halpern=True)
+        plan = pdhg_cluster_plan(1, m, n, active=active, layout=HALPERN)
         C = plan["cluster_size"]
         ranges = plan["row_ranges"]
         assert len(ranges) == C
@@ -382,8 +398,8 @@ def test_halpern_plan_covers_rows_and_fits(m, n):
         assert plan["rows_in_smem"] == sum(min(hi - lo, plan["n_res"])
                                            for lo, hi in ranges)
         assert plan["smem_bytes"] == halpern_cluster_smem_bytes(
-            m, n, C, plan["n_res"], plan["scatter"])
-        assert plan["smem_bytes"] <= BUDGET
+            m, n, C, plan["n_res"])
+        assert plan["smem_bytes"] <= BUDGET and plan["scatter"]
         if plan["n_res"] < -(-m // C):    # one more resident row would not fit
             assert halpern_cluster_smem_bytes(
-                m, n, C, plan["n_res"] + 1, plan["scatter"]) > BUDGET
+                m, n, C, plan["n_res"] + 1) > BUDGET
