@@ -21,6 +21,21 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           64 x 256^2 and at 16 x 784^2 (bench.py's shapes and seeds): every
           instance certified by the host f64 certifier, both kernels
           launched, stage split, certified instances/s;
+  network_crossover_784x784
+          the paper's front door on instance 0 of the 16 x 784^2 batch:
+          sinkhorn(ot) through K1 (one launch, B = 1, against its plain
+          version on the card), then network_crossover with TNET and
+          CNET_OT, each OPTIMAL and equal to main_16x784x784's certified
+          objective to 1e-9; TNET's basis certified;
+  network_crossover_goto128
+          CNET_MCF on a degree-regular GOTO-like MCF (128^2 nodes, 98,304
+          arcs) from HiGHS's optimum plus noise, equal to HiGHS to 1e-9,
+          against a cold native network simplex;
+  tnet_exact_64x256x256
+          batched_tnet_exact on main_64x256x256's batch: the host route,
+          'auto' (which must take the mega route) and the mega route
+          capped at 100 pivots (which must repair some instance), 64/64
+          optimal each, equal to the certified objectives to 1e-9;
   k3, k4  the PDHG and Halpern chunk kernels against their plain versions
           at 512 x 2048, one 64-iteration chunk, with the median ms of each,
           ms per iteration and the cluster plan (cluster size, resident
@@ -78,6 +93,8 @@ F64_RATIO, F64_FLOOR = 4.0, 1e-5
 # bits, so only the step-weighted averages are compared, loosely.
 K5_LONG_AVG_RTOL = 5e-2
 LP_OBJ_RTOL = 1e-8      # exact vertex vs HiGHS
+EXACT_RTOL = 1e-9       # network crossover / exact OT routes vs the
+                        # certified or HiGHS objective (all f64 host)
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, and HBM3
@@ -408,7 +425,179 @@ def phase_main(scx, B, S, D, seed, reps):
             and counts["transport_simplex_mega"] > 0,
             f"a kernel was not launched on the OT path: {counts}")
     require(k2_cluster > 1, f"K2 ran {k2_cluster} block per instance")
-    return counts
+    return counts, cobj
+
+
+# ------------------------------------------------------ network crossover
+
+def phase_network_crossover(scx, cert_obj):
+    """The verify flow at the reference's MNIST scale: instance 0 of
+    bench.py's 16 x 784^2 batch (seed 1), sinkhorn(ot) on the card (K1 at
+    B = 1), then network_crossover with TNET and CNET_OT.  `cert_obj` is
+    main_16x784x784's certified objective of that instance (K2 and the
+    host certifier: another route)."""
+    import torch
+
+    import bench
+    from smart_crossover_tpu_torch.ops import sinkhorn_fused as sf
+    from smart_crossover_tpu_torch.solvers.sinkhorn import round_to_feasible
+
+    from smart_crossover_tpu_torch import native
+
+    # the native network simplex builds at first use: build it here, so
+    # that g++ is not timed inside the first crossover
+    t0 = time.perf_counter()
+    native.library()
+    native_build_s = time.perf_counter() - t0
+    s, d, M = (a[0] for a in bench.make_batch(16, 784, 784, seed=1))
+    S, D = M.shape
+    ot = scx.OptTransport(s=s, d=d, M=M)
+    torch.cuda.synchronize()
+    scx.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    x = scx.sinkhorn(ot, reg=REG, num_iters=SINKHORN_ITERS)
+    sinkhorn_s = time.perf_counter() - t0
+    counts = scx.kernel_launch_counts()
+    lay = dict(sf.LAST_LAUNCH)
+    # the call's kernel launch alone, and the plain version on the card, on
+    # the call's own inputs (eps folded into M in float32, as it folds it)
+    st, dt, Mt = to_cuda(s[None], d[None], M[None])
+    Mn = (Mt / (REG * Mt.amax())).contiguous()
+    _, k1_ms, k1_all = sync_time(lambda: sf.sinkhorn_plan_fused(
+        st, dt, Mn, 1.0, SINKHORN_ITERS), 3)
+    (pp, _, _), plain_ms, _ = sync_time(lambda: sf.sinkhorn_plan_fused_plain(
+        st, dt, Mn, 1.0, SINKHORN_ITERS), 1)
+    xp = round_to_feasible(pp, st, dt)[0].double().cpu().numpy().ravel()
+    dplan = float(np.abs(x - xp).max())
+    pmax = float(np.abs(xp).max())
+    rec = {"phase": "network_crossover_784x784", "seed": 1, "instance": 0,
+           "sinkhorn_launches": counts["sinkhorn_fused"],
+           "sinkhorn_call_s": sinkhorn_s, "k1_ms": k1_ms,
+           "k1_all_ms": k1_all, "k1_plain_ms": plain_ms,
+           "max_abs_dplan": dplan, "max_plan": pmax,
+           "k1_cluster_size": lay["cluster_size"],
+           "k1_max_active_clusters": lay["max_active_clusters"],
+           "k1_waves": lay["waves"], "k1_n_res": lay["n_res"],
+           "k1_m_in_smem": lay["m_in_smem"],
+           "k1_smem_bytes_per_block": lay["smem_bytes"],
+           "certified_obj": cert_obj, "native_build_s": native_build_s,
+           "tolerance": {"plan_rtol": K1_PLAN_RTOL, "obj_rtol": EXACT_RTOL}}
+    require(counts["sinkhorn_fused"] == 1,
+            f"sinkhorn(ot) launched K1 {counts['sinkhorn_fused']} times")
+    require(bool(np.isfinite(x).all()) and x.shape == (S * D,),
+            "sinkhorn(ot) output malformed")
+    require(dplan <= K1_PLAN_RTOL * pmax, f"K1 at B = 1 differs: {dplan}")
+    for method in ("tnet", "cnet_ot"):
+        stats = {}
+        t0 = time.perf_counter()
+        out = scx.network_crossover(x, ot=ot, method=method, stats=stats)
+        wall = time.perf_counter() - t0
+        rel = abs(out.obj_val - cert_obj) / abs(cert_obj)
+        rec[method] = {"status": out.status, "obj": out.obj_val,
+                       "rel_to_certified": rel, "wall_s": wall,
+                       "pivots": out.iter_count,
+                       "runtime_s": out.runtime.total_seconds(), **stats}
+        require(out.status == "OPTIMAL", f"{method}: {out.status}")
+        require(rel <= EXACT_RTOL, f"{method} off the certificate: {rel}")
+        if method == "tnet":
+            c = scx.certify_ot_basis((out.basis.vbasis == 0).reshape(S, D),
+                                     s, d, M)
+            rec[method].update(basis_certified=c.ok,
+                               basis_max_feas_err=c.max_feas_err,
+                               basis_min_reduced_cost=c.min_rcost)
+            require(c.ok, f"TNET basis not certified: {c.reason}")
+    emit(rec)
+    return counts, k1_ms, plain_ms
+
+
+def phase_goto(scx):
+    """CNET_MCF on goto_like_mcf(128, 128, 4, regular=True, seed=42), the
+    generator scripts/run_goto17.py runs at 362^2.  The warm start is
+    HiGHS's optimum plus U(-0.05, 0.05) u noise, clipped to [0, u] (numpy
+    seed 0): it stands in for the barrier or PDHG flow, as the arc-list MCF
+    PDHG (ROADMAP 1.11) is not ported yet."""
+    import torch
+    from scipy.optimize import linprog
+
+    from smart_crossover_tpu_torch.data.mcf_gen import goto_like_mcf
+    from smart_crossover_tpu_torch.solvers.network_simplex import (
+        network_simplex)
+
+    mcf = goto_like_mcf(128, 128, extra_arc_factor=4, regular=True, seed=42)
+    t0 = time.perf_counter()
+    ref = linprog(mcf.c, A_eq=mcf.A, b_eq=mcf.b,
+                  bounds=np.stack([np.zeros(mcf.n), mcf.u], 1),
+                  method="highs")
+    highs_s = time.perf_counter() - t0
+    require(ref.status == 0, f"HiGHS failed: {ref.message}")
+    rng = np.random.default_rng(0)
+    x = np.clip(ref.x + rng.uniform(-0.05, 0.05, mcf.n) * mcf.u, 0, mcf.u)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = scx.network_crossover(x, mcf=mcf, method="cnet_mcf", stats=stats)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = network_simplex(mcf)
+    cold_s = time.perf_counter() - t0
+    rel = abs(out.obj_val - ref.fun) / abs(ref.fun)
+    emit({"phase": "network_crossover_goto128", "nodes": mcf.m,
+          "arcs": mcf.n, "status": out.status, "obj": out.obj_val,
+          "highs_obj": float(ref.fun), "rel_to_highs": rel,
+          "highs_s": highs_s, "wall_s": wall, "pivots": out.iter_count,
+          **stats, "cold_status": cold.status, "cold_pivots": cold.iter_count,
+          "cold_s": cold_s, "cold_rel_to_highs":
+          abs(cold.obj_val - ref.fun) / abs(ref.fun),
+          "tolerance": {"obj_rtol": EXACT_RTOL}})
+    require(out.status == "OPTIMAL", f"cnet_mcf: {out.status}")
+    require(rel <= EXACT_RTOL, f"cnet_mcf off HiGHS: {rel}")
+    require(cold.status == "OPTIMAL", f"cold network simplex: {cold.status}")
+
+
+def phase_tnet_exact(scx, cert_objs):
+    """batched_tnet_exact on main_64x256x256's batch, three ways; the f64
+    batch goes in (float32 on the card, exact f64 on the host), and
+    `cert_objs` are that phase's certified objectives."""
+    import torch
+
+    import bench
+
+    s, d, M = bench.make_batch(64, 256, 256, seed=0)
+    rec = {"phase": "tnet_exact_64x256x256", "seed": 0,
+           "tolerance": {"obj_rtol": EXACT_RTOL}}
+    runs = (("host", dict(engine="host")), ("auto", dict(engine="auto")),
+            ("mega_cap100", dict(engine="mega", max_pivots=100)))
+    for label, kw in runs:
+        stats = {}
+        torch.cuda.synchronize()
+        scx.reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        X, obj, piv, opt = scx.batched_tnet_exact(
+            s, d, M, reg=REG, sinkhorn_iters=SINKHORN_ITERS, stats=stats,
+            **kw)
+        wall = time.perf_counter() - t0
+        counts = scx.kernel_launch_counts()
+        rel = float(np.max(np.abs(obj - cert_objs) / np.abs(cert_objs)))
+        rec[label] = {"n_optimal": int(opt.sum()), "wall_s": wall,
+                      "host_share": stats["host_s"] / wall,
+                      "median_pivots": float(np.median(piv)),
+                      "max_pivots": int(piv.max()),
+                      "max_rel_to_certified": rel, "launches": counts,
+                      **stats}
+        require(bool(opt.all()), f"{label}: {int(opt.sum())}/64 optimal")
+        require(X.shape == (64, 256, 256) and bool(np.isfinite(X).all()),
+                f"{label}: output malformed")
+        require(rel <= EXACT_RTOL, f"{label} off the certificates: {rel}")
+        require(counts["sinkhorn_fused"] > 0, f"{label}: K1 not launched")
+        if stats["engine"] == "mega":
+            require(counts["transport_simplex_mega"] > 0,
+                    f"{label}: K2 not launched")
+    emit(rec)
+    require(rec["auto"]["engine"] == "mega",
+            f"'auto' took {rec['auto']['engine']} at 64 x 256^2")
+    require(rec["mega_cap100"]["repaired"] >= 1,
+            "capped at 100 pivots, no instance was repaired")
+    return {k: rec[k]["launches"] for k in ("host", "auto")}
 
 
 # ---------------------------------------------------------------- dense LP
@@ -767,11 +956,20 @@ def main() -> int:
     phase_build(_build)
 
     kernels = [phase_k1(), phase_k2(scx)]
-    counts = phase_main(scx, 64, 256, 256, seed=0, reps=5)
-    counts7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
+    counts, cobj = phase_main(scx, 64, 256, 256, seed=0, reps=5)
+    counts7, cobj7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_784"] = counts7[k["name"]]
+    nc_counts, k1_b1_ms, k1_b1_plain = phase_network_crossover(scx, cobj7[0])
+    phase_goto(scx)
+    exact = phase_tnet_exact(scx, cobj)
+    kernels[0].update(launches_network_crossover=nc_counts["sinkhorn_fused"],
+                      ms_784_b1=k1_b1_ms, plain_ms_784_b1=k1_b1_plain,
+                      bound_ms_784_b1=bound(*sinkhorn_work(1, 784, 784))[0])
+    for k in kernels:
+        k["launches_tnet_exact_host"] = exact["host"][k["name"]]
+        k["launches_tnet_exact_auto"] = exact["auto"][k["name"]]
 
     kernels += [phase_k3(512, 2048, seed=3), phase_k4(512, 2048, seed=3),
                 phase_k5()]

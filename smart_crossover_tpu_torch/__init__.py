@@ -1,6 +1,8 @@
 """PyTorch / CUDA port of smart_crossover_tpu on an NVIDIA Hopper card: the
-certified-exact batched OT crossover, and the dense-LP first-order path
-(PDHG warm start, then an exact host vertex).
+certified-exact batched OT crossover (device route with host repair, and
+the host route), the paper's network crossover (``sinkhorn`` then
+``network_crossover``: TNET, CNET_OT, CNET_MCF), and the dense-LP
+first-order path (PDHG warm start, then an exact host vertex).
 
 The layout mirrors ``smart_crossover_tpu/``; each module names its JAX
 counterpart.  Plain tensor code is PyTorch; every TPU kernel of the JAX
@@ -10,6 +12,16 @@ use.  The package imports torch, numpy and scipy, never jax.
 from smart_crossover_tpu_torch._build import (
     kernel_launch_counts,
     reset_kernel_launch_counts,
+)
+from smart_crossover_tpu_torch.models import (
+    Basis,
+    MinCostFlow,
+    OptTransport,
+    Output,
+)
+from smart_crossover_tpu_torch.network_methods import (
+    column_generation,
+    network_crossover,
 )
 from smart_crossover_tpu_torch.network_methods.certify import (
     OTCertificate,
@@ -22,26 +34,38 @@ from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
 )
 from smart_crossover_tpu_torch.parallel.batched import (
     batched_tnet,
+    batched_tnet_exact,
     batched_tnet_exact_device,
     tnet_single,
 )
 from smart_crossover_tpu_torch.parallel.batched_lp import batched_lp_crossover
 from smart_crossover_tpu_torch.solvers.pdhg import PDHGResult, pdhg_solve
 from smart_crossover_tpu_torch.solvers.pdhg_batched import pdhg_dense_batched
+from smart_crossover_tpu_torch.solvers.settings import SolverSettings
+from smart_crossover_tpu_torch.solvers.sinkhorn import sinkhorn
 
 __all__ = [
+    "Basis",
+    "MinCostFlow",
     "OTCertificate",
+    "OptTransport",
+    "Output",
     "PDHGResult",
+    "SolverSettings",
     "batched_lp_crossover",
     "batched_tnet",
+    "batched_tnet_exact",
     "batched_tnet_exact_device",
     "batched_transport_simplex_mega",
     "certify_ot_basis",
     "certify_ot_basis_batch",
+    "column_generation",
     "kernel_launch_counts",
+    "network_crossover",
     "pdhg_dense_batched",
     "pdhg_solve",
     "reset_kernel_launch_counts",
+    "sinkhorn",
     "sinkhorn_plan_fused",
     "tnet_single",
 ]

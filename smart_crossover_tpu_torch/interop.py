@@ -4,12 +4,17 @@ The system has no weights; what crosses over is an instance batch (an OT
 batch or an LP) and the intermediate state the JAX pipeline produced.  ``from_reference`` turns
 those arrays (as numpy, e.g. ``np.asarray`` of JAX arrays) into the port's
 tensors with their dtypes kept, so a test can feed a port stage exactly
-the reference's input to that stage.
+the reference's input to that stage.  ``instance_from_reference`` turns
+the JAX package's ``OptTransport``, ``MinCostFlow`` or ``Basis`` into the
+port's, by their numpy fields alone (the port never imports the JAX
+package).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from smart_crossover_tpu_torch.models import Basis, MinCostFlow, OptTransport
 
 #: OT instance batch (s, d, M); warm start (X0, Bm); mega setup state
 #: (parent, N, dep, w, Xv); an LP (A, b, c, l, u) and the PDHG state
@@ -29,3 +34,28 @@ def from_reference(device="cpu", **arrays) -> dict:
                          f"expected some of {NAMES}")
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in arrays.items()}
+
+
+def instance_from_reference(obj):
+    """The port's ``OptTransport``, ``MinCostFlow`` or ``Basis`` with the
+    fields of ``obj``, an instance of the JAX package's class of that name
+    (matched by its field names: s, d, M; tails, heads, c, u, b; vbasis,
+    cbasis).  Anything else raises TypeError."""
+    def has(*names):
+        return all(hasattr(obj, n) for n in names)
+
+    def arr(name):
+        return np.array(getattr(obj, name))
+
+    name = getattr(obj, "name", None)
+    if has("s", "d", "M"):
+        kw = {} if name is None else {"name": name}
+        return OptTransport(s=arr("s"), d=arr("d"), M=arr("M"), **kw)
+    if has("tails", "heads", "c", "u", "b"):
+        kw = {} if name is None else {"name": name}
+        return MinCostFlow(tails=arr("tails"), heads=arr("heads"),
+                           c=arr("c"), u=arr("u"), b=arr("b"), **kw)
+    if has("vbasis", "cbasis"):
+        return Basis(arr("vbasis"), arr("cbasis"))
+    raise TypeError(f"instance_from_reference: {type(obj).__name__} is not "
+                    "an OptTransport, MinCostFlow or Basis")

@@ -1,17 +1,29 @@
 """Batched TNET pipelines, from Sinkhorn warm start to exact vertices.
 
 Port of ``smart_crossover_tpu/parallel/batched.py`` (``tnet_single``,
-``batched_tnet``, ``batched_tnet_exact_device``).  Every stage takes the
-instance batch as a leading axis.  The Sinkhorn stage always runs the
-fused route: per-instance eps = reg * max(M_b) is folded into the cost and
-the fused kernel runs at reg = 1 (the plan is invariant under
-(M / eps, eps = 1)).  The pivot stage runs the in-kernel transportation
-simplex.  The other engines of the JAX package, its host repair
-(``batched_tnet_exact``) and its sharded pipelines are not ported yet.
+``batched_tnet``, ``batched_tnet_exact_device``, ``batched_tnet_exact``).
+Every stage takes the instance batch as a leading axis.  The Sinkhorn
+stage always runs the fused route: per-instance eps = reg * max(M_b) is
+folded into the cost and the fused kernel runs at reg = 1 (the plan is
+invariant under (M / eps, eps = 1)).  The pivot stage runs the in-kernel
+transportation simplex; the host route cleans up with the native network
+simplex.  The other device engines of the JAX package and its sharded
+pipelines are not ported yet.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
+import os
+import time
+
+import numpy as np
+import torch
+
 from smart_crossover_tpu_torch.config import resolve_device, to_device
+from smart_crossover_tpu_torch.models import Basis, OptTransport
+from smart_crossover_tpu_torch.network_methods.certify import (
+    certify_ot_basis_batch,
+)
 from smart_crossover_tpu_torch.network_methods.tree_bi import (
     identify_tree_flows,
 )
@@ -20,31 +32,55 @@ from smart_crossover_tpu_torch.ops.ranking import ot_flow_indicators
 from smart_crossover_tpu_torch.ops.sinkhorn_fused import sinkhorn_plan_fused
 from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
     batched_transport_simplex_mega,
+    cluster_plan,
 )
+from smart_crossover_tpu_torch.solvers.network_simplex import network_simplex
 from smart_crossover_tpu_torch.solvers.sinkhorn import round_to_feasible
 
+_UNPORTED_ENGINES = ("device", "parent", "anc", "packed", "mask")
 
-def _warm_start(s, d, M, reg: float, sinkhorn_iters: int):
+
+def _on_device(s, d, M, device):
+    dev = resolve_device(device, M)
+    M = to_device(M, dev)
+    return to_device(s, dev, M.dtype), to_device(d, dev, M.dtype), M
+
+
+def _warm_start(s, d, M, reg: float, sinkhorn_iters: int,
+                tree_weights: str = "flow"):
     eps = reg * M.amax((1, 2))
     Mn = (M / eps[:, None, None]).contiguous()
-    plan, _, _ = sinkhorn_plan_fused(s, d, Mn, 1.0, sinkhorn_iters)
-    Xs = round_to_feasible(plan, s, d)
-    W = ot_flow_indicators(Xs, s, d)
+    plan, f, g = sinkhorn_plan_fused(s, d, Mn, 1.0, sinkhorn_iters)
+    if tree_weights == "reduced_cost":
+        # the JAX package's -(M - f - g) over eps: a positive per-instance
+        # scaling, which leaves Borůvka's tree unchanged
+        W = -(Mn - f[:, :, None] - g[:, None, :])
+    elif tree_weights == "flow":
+        W = ot_flow_indicators(round_to_feasible(plan, s, d), s, d)
+    else:
+        raise ValueError(f"tree_weights must be 'flow' or 'reduced_cost', "
+                         f"got {tree_weights!r}")
     return identify_tree_flows(W, s, d)
 
 
-def batched_tnet(s, d, M, reg: float = 0.02, sinkhorn_iters: int = 200):
-    """TNET over a batch, flow-indicator tree weights: s (B, S), d (B, D),
-    M (B, S, D) tensors.  Returns (X_vertex, push_iters, obj)."""
-    X, push = _warm_start(s, d, M, reg, sinkhorn_iters)
+def batched_tnet(s, d, M, reg: float = 0.02, sinkhorn_iters: int = 200,
+                 tree_weights: str = "flow", device=None):
+    """TNET over a batch: s (B, S), d (B, D), M (B, S, D), numpy arrays or
+    tensors.  ``tree_weights='reduced_cost'`` builds the spanning tree from
+    the Sinkhorn potentials instead of the flow indicators.  ``device``: M's
+    device if M is a tensor, else the CUDA card (without one that default
+    raises).  Returns (X_vertex, push_iters, obj), tensors on the device."""
+    s, d, M = _on_device(s, d, M, device)
+    X, push = _warm_start(s, d, M, reg, sinkhorn_iters, tree_weights)
     return X, push, (X * M).sum((1, 2))
 
 
-def tnet_single(s, d, M, reg: float = 0.02, sinkhorn_iters: int = 200):
+def tnet_single(s, d, M, reg: float = 0.02, sinkhorn_iters: int = 200,
+                tree_weights: str = "flow", device=None):
     """One instance, s (S,), d (D,), M (S, D): Sinkhorn -> indicators ->
     MST -> tree solve -> push.  Returns (X_vertex, push_iters, obj)."""
     X, push, obj = batched_tnet(s[None], d[None], M[None], reg,
-                                sinkhorn_iters)
+                                sinkhorn_iters, tree_weights, device)
     return X[0], push[0], obj[0]
 
 
@@ -74,10 +110,7 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet (ROADMAP 1.6b: the parent, "
             "anc, packed and mask engines); use engine='mega'")
-    dev = resolve_device(device, M)
-    M = to_device(M, dev)
-    s = to_device(s, dev, M.dtype)
-    d = to_device(d, dev, M.dtype)
+    s, d, M = _on_device(s, d, M, device)
     X0, push = _warm_start(s, d, M, reg, sinkhorn_iters)
     support = (X0 > 1e-12).to(M.dtype)
     Bm0 = boruvka_bipartite_mst(support)
@@ -85,3 +118,131 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
         X0, Bm0, M, max_pivots=max_pivots)
     obj = (X.to(M.dtype) * M).sum((1, 2))
     return X, obj, push, pivots, optimal, Bm
+
+
+def _host64(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(a, dtype=np.float64)
+
+
+def _solve_ot(s, d, M, vbasis):
+    """The native network simplex on one OT instance from a warm vbasis
+    over its S*D cells (cbasis roots the tree at the last node)."""
+    mcf = OptTransport(s=s, d=d, M=M).to_MCF()
+    cbasis = np.concatenate([-np.ones(mcf.m - 1, dtype=np.int32), [0]])
+    return network_simplex(mcf, warm_basis=Basis(vbasis, cbasis))
+
+
+def batched_tnet_exact(s, d, M, reg: float = 0.005,
+                       sinkhorn_iters: int = 1000, mesh=None,
+                       engine: str = "auto",
+                       max_pivots: int | None = None, device=None,
+                       stats: dict | None = None):
+    """Batched crossover to EXACT optimal vertices, certified on the host.
+
+    ``engine='host'``: the device runs the batched TNET pipeline (the fused
+    Sinkhorn kernel); the native network simplex then cleans each instance
+    up on the host from the support X > 0 of its tree vertex, over
+    min(cpu_count, 8) threads (the core releases the interpreter lock).
+
+    ``engine='mega'``: ``batched_tnet_exact_device`` (the Sinkhorn and
+    pivot-loop kernels); every returned basis is certified in f64 on the
+    host (``certify_ot_basis_batch``), and each instance that fails or hit
+    the pivot cap (``max_pivots``, default max(5000, 8 (S + D))) is
+    repaired by the native network simplex warm-started from its device
+    basis, whose pivots are added to its count.
+
+    ``engine='auto'``: 'mega' where the pivot-loop kernel's layout
+    (``transport_simplex_mega.cluster_plan``) fits the shape, else 'host'.
+    This replaces the JAX package's TPU-only rule.
+
+    Both routes rescale d to sum(s) on the host (f32 mass drift) before
+    the exact solves, so the returned vertices are exact f64 whatever the
+    device precision.  ``device`` is as in ``batched_tnet``.  ``stats``, if
+    given, gets the route taken (``engine``), the device and host seconds
+    (``device_s``, ``host_s``) and the number of instances repaired
+    (``repaired``, 'mega' only).
+
+    Returns (X, obj, pivots, optimal) as numpy arrays.
+    """
+    if mesh is not None:
+        raise NotImplementedError("mesh= is not ported yet (ROADMAP 1.15: "
+                                  "multi-device pipelines)")
+    if engine in _UNPORTED_ENGINES:
+        raise NotImplementedError(
+            f"engine={engine!r} is not ported yet (ROADMAP 1.6b: the parent, "
+            "anc, packed and mask engines); use 'auto', 'mega' or 'host'")
+    if engine not in ("auto", "mega", "host"):
+        raise ValueError(f"unknown engine {engine!r}")
+    B, S, D = M.shape
+    if engine == "auto":
+        try:
+            cluster_plan(B, S, D)
+            engine = "mega"
+        except ValueError:
+            engine = "host"
+    stats = {} if stats is None else stats
+    stats["engine"] = engine
+    s64, M64 = _host64(s), _host64(M)
+    d64 = _host64(d)
+    d64 = d64 * (s64.sum(1) / d64.sum(1))[:, None]  # f32 mass drift
+    if engine == "mega":
+        if max_pivots is None:
+            # pivot counts from warm starts grow ~linearly in V
+            max_pivots = max(5000, 8 * (S + D))
+        t0 = time.perf_counter()
+        *_, piv, opt, Bm = batched_tnet_exact_device(
+            s, d, M, reg=reg, sinkhorn_iters=sinkhorn_iters,
+            max_pivots=max_pivots, device=device)
+        piv_n = piv.cpu().numpy().astype(np.int64)
+        opt_n = opt.cpu().numpy().astype(bool)
+        Bm_n = Bm.cpu().numpy()
+        stats["device_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        certs = certify_ot_basis_batch(Bm_n, s64, d64, M64)
+        Xn = np.stack([c.x for c in certs])
+        obj_n = np.array([c.obj_val for c in certs])
+        ok = opt_n & np.array([c.ok for c in certs])
+        # certification failures / pivot-capped instances: warm-start the
+        # native core from the device basis
+        bad = np.flatnonzero(~ok)
+        for i in bad:
+            vbasis = np.where(Bm_n[i].ravel(), 0, -1).astype(np.int32)
+            res = _solve_ot(s64[i], d64[i], M64[i], vbasis)
+            Xn[i] = res.x.reshape(S, D)
+            obj_n[i] = res.obj_val
+            piv_n[i] += res.iter_count
+            ok[i] = res.status == "OPTIMAL"
+        stats["host_s"] = time.perf_counter() - t0
+        stats["repaired"] = int(bad.size)
+        return Xn, obj_n, piv_n, ok
+
+    t0 = time.perf_counter()
+    X, _, _ = batched_tnet(s, d, M, reg=reg, sinkhorn_iters=sinkhorn_iters,
+                           device=device)
+    X = X.to("cpu", torch.float64).numpy()
+    stats["device_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_X = np.empty_like(X)
+    out_obj = np.empty(B)
+    pivots = np.empty(B, dtype=np.int64)
+    optimal = np.zeros(B, dtype=bool)
+
+    def cleanup(i: int) -> None:
+        vbasis = np.where(X[i].ravel() > 0, 0, -1).astype(np.int32)
+        res = _solve_ot(s64[i], d64[i], M64[i], vbasis)
+        out_X[i] = res.x.reshape(S, D)
+        out_obj[i] = res.obj_val
+        pivots[i] = res.iter_count
+        optimal[i] = res.status == "OPTIMAL"
+
+    workers = min(max(os.cpu_count() or 1, 1), 8)
+    if workers > 1 and B > 1:
+        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+            list(pool.map(cleanup, range(B)))
+    else:
+        for i in range(B):
+            cleanup(i)
+    stats["host_s"] = time.perf_counter() - t0
+    return out_X, out_obj, pivots, optimal

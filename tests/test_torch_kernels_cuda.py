@@ -285,6 +285,43 @@ def test_exact_pipeline_certifies_on_card(cuda):
     assert all(c.ok for c in certs)
 
 
+@pytest.mark.parametrize("shape", [(1, 784, 784), (1, 100, 130)])
+def test_sinkhorn_kernel_single_instance_matches_plain(cuda, shape):
+    """B = 1, as sinkhorn(ot) launches it: at 784^2 the plan takes the
+    largest cluster; D = 130 is not a multiple of 4 (padded rows)."""
+    from smart_crossover_tpu_torch.ops import sinkhorn_fused as sf
+
+    s, d, Mn = _k1_inputs(*shape, seed=61)
+    n0 = _build.kernel_launch_counts()["sinkhorn_fused"]
+    k = sinkhorn_plan_fused(s, d, Mn, 1.0, 300)
+    torch.cuda.synchronize()
+    assert _build.kernel_launch_counts()["sinkhorn_fused"] == n0 + 1
+    assert sf.LAST_LAUNCH["shape"] == list(shape)
+    _k1_close(k, sinkhorn_plan_fused_plain(s, d, Mn, 1.0, 300))
+
+
+def test_network_crossover_on_card_matches_cpu(cuda):
+    """The verify flow on the card (sinkhorn through K1, float32 ranking
+    and tree identification) reaches the CPU port's exact objective."""
+    from smart_crossover_tpu_torch import (
+        OptTransport, network_crossover, sinkhorn)
+
+    rng = np.random.default_rng(62)
+    s = rng.uniform(0.5, 2.0, 64)
+    d = rng.uniform(0.5, 2.0, 64)
+    d *= s.sum() / d.sum()
+    ot = OptTransport(s, d, rng.uniform(0.0, 5.0, (64, 64)))
+    _build.reset_kernel_launch_counts()
+    x = sinkhorn(ot, reg=0.02, num_iters=500)
+    assert _build.kernel_launch_counts()["sinkhorn_fused"] == 1
+    out = network_crossover(x, ot=ot, method="tnet")
+    ref = network_crossover(sinkhorn(ot, reg=0.02, num_iters=500,
+                                      device="cpu"),
+                            ot=ot, method="tnet", device="cpu")
+    assert out.status == ref.status == "OPTIMAL"
+    assert out.obj_val == pytest.approx(ref.obj_val, rel=1e-9)
+
+
 # ------------------------------------------------------ dense-LP kernels
 
 def _lp(m, n, seed):
