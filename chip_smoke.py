@@ -51,6 +51,37 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
   main_lp_fleet_32x64x256, main_lp_fleet_64x256x512
           batched_lp_crossover(warm_engine="pdhg"): every instance optimal
           and equal to HiGHS to 1e-8;
+  lp_front_door_512x2048
+          the LP front door: solve_lp(method="first_order") on the single
+          LP as a GeneralLP, tol 1e-4, adaptive: OPTIMAL, K3 launched,
+          within 1e-3 of HiGHS (the Halpern route through the facade is
+          held by the CPU tests);
+  perturb_800x3200
+          the perturbation crossover, solve_lp(method="barrier_perturb"), on
+          random_sparse_lp(800, 3200, seed 0): OPTIMAL and equal to HiGHS
+          to 1e-8, with the barrier's iterations and seconds, the fixed
+          variables and constraints of each attempt, how it finished and
+          the finishing pivots (from the facade's log file and the
+          crossover's log records); then apply_projector_torch on the card
+          for Y = A_std diag(x_std), the product get_projector_Xc projects
+          with, within 1e-4 of the host apply_projector and
+          ||Y p|| / ||Y v|| below 1e-3.  800 x 3200 is the smaller row of
+          BENCH.md's large-LP table: the middle row, 1500 x 6000, takes
+          6-11 min on an H100 machine's host and HiGHS as long again,
+          which with the rest does not fit this script's 1200 s;
+          scripts/torch_perturb_1500x6000.py runs that phase alone;
+  cli_mps_800x3200
+          random_sparse_lp(800, 3200, seed 1) written with write_mps, then
+          `python -m smart_crossover_tpu_torch solve <file> --method
+          barrier_perturb` in a subprocess (rc 0, the printed objective
+          equal to HiGHS's on the LP read back to 1e-8), and in this
+          process solve_lp's barrier against barrier_perturb on that LP;
+  solve_ot_784
+          instance 0 of the 784^2 batch through solve_ot: 'sinkhorn'
+          (APPROXIMATE, K1 once), 'device_simplex' with engine 'mega'
+          (OPTIMAL, equal to main_16x784x784's certified objective to 1e-9,
+          K1 and K2 once each), and the default engine raising (ROADMAP
+          1.6b);
 then the card's nvidia-smi line, the kernels' summary (each kernel's
 median ms, launches on the main path, the plain version's ms, and its
 bound: the largest of the operations these inputs need at the card's
@@ -901,7 +932,7 @@ def phase_lp_single(scx, m, n, seed):
                 f"pdhg_solve({mode}) warm start not finite")
         require(vx.status == "OPTIMAL", f"crossover ({mode}): {vx.status}")
         require(rel <= LP_OBJ_RTOL, f"vertex ({mode}) off HiGHS: {rel}")
-    return counts
+    return counts, ref
 
 
 def phase_lp_fleet(scx, B, m, n, seed, reps):
@@ -941,6 +972,314 @@ def phase_lp_fleet(scx, B, m, n, seed, reps):
     return counts, dev_ms
 
 
+# ---------------------------------------------------------- LP front door
+
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke")
+PERTURB_OBJ_RTOL = 1e-8     # exact vertex vs HiGHS
+FRONT_DOOR_OBJ_RTOL = 1e-3  # the first-order point (tol 1e-4) vs HiGHS
+PROJ_RTOL = 1e-4            # the float32 projector vs the host f64 one
+PROJ_RESIDUAL = 1e-3        # ||Y p|| / ||Y v|| of the float32 projector
+
+
+def highs_lp(lp):
+    """HiGHS's objective on a GeneralLP (offset included) and its
+    seconds."""
+    import scipy.sparse as sp
+    from scipy.optimize import linprog
+
+    A = sp.csr_matrix(lp.A)
+    eq = lp.sense == "="
+    t0 = time.perf_counter()
+    ref = linprog(lp.c, A_eq=A[eq], b_eq=lp.b[eq],
+                  A_ub=A[~eq] if (~eq).any() else None,
+                  b_ub=lp.b[~eq] if (~eq).any() else None,
+                  bounds=np.stack([lp.l, lp.u], 1), method="highs")
+    require(ref.status == 0, f"HiGHS failed: {ref.message}")
+    return float(ref.fun) + lp.obj_offset, time.perf_counter() - t0
+
+
+def rel_to(a, ref) -> float:
+    return abs(a - ref) / max(1.0, abs(ref))
+
+
+def phase_lp_front_door(scx, m, n, seed, ref):
+    """solve_lp(method="first_order") on chip_smoke's single LP: the
+    facade, pdhg_general_lp, pdhg_solve and K3 on the card.  `ref` is
+    HiGHS's objective (main_lp_single's)."""
+    import torch
+
+    A, b, c, l, u = lp_single(m, n, seed)
+    lp = scx.GeneralLP(A=A, b=b, c=c, l=l, u=u, sense=np.full(m, "="))
+    settings = scx.SolverSettings(barrierTol=1e-4, fomMode="adaptive")
+    torch.cuda.synchronize()
+    scx.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    out = scx.solve_lp(lp, method="first_order", settings=settings)
+    wall = time.perf_counter() - t0
+    counts = scx.kernel_launch_counts()
+    rel = rel_to(out.obj_val, ref)
+    emit({"phase": f"lp_front_door_{m}x{n}", "seed": seed,
+          "method": "first_order", "fomMode": "adaptive", "tol": 1e-4,
+          "status": out.status, "pdhg_iters": out.bar_iter_count,
+          "obj": out.obj_val, "highs_obj": ref, "rel_to_highs": rel,
+          "wall_s": wall, "launches": counts,
+          "tolerance": {"obj_rtol": FRONT_DOOR_OBJ_RTOL}})
+    require(out.status == "OPTIMAL", f"front door first_order: {out.status}")
+    require(bool(np.isfinite(out.x).all()) and out.x.shape == (n,),
+            "front door first_order output malformed")
+    require(counts["pdhg_chunk"] > 0, f"K3 not launched: {counts}")
+    require(rel <= FRONT_DOOR_OBJ_RTOL, f"front door off HiGHS: {rel}")
+    return counts
+
+
+class _Records:
+    """Collects the perturbation crossover's log records (the attempts,
+    the fixed counts and how it finished), off the console."""
+
+    def __init__(self, name):
+        import logging
+
+        self.messages = []
+        self.logger = logging.getLogger(name)
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: self.messages.append(r.getMessage())
+
+    def __enter__(self):
+        import logging
+
+        self.level, self.propagate = self.logger.level, self.logger.propagate
+        self.logger.setLevel(logging.INFO)
+        self.logger.propagate = False
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+        self.logger.propagate = self.propagate
+
+
+def solve_log(path):
+    """The facade's log file as dicts, one per internal solve, in order."""
+    rows = []
+    for line in open(path):
+        parts = line.split()
+        row = {"method": parts[2]}
+        for kv in parts[3:]:
+            k, _, v = kv.partition("=")
+            row[k] = v
+        rows.append(row)
+    return rows
+
+
+def perturb_run(scx, lp, tag):
+    """solve_lp(method="barrier_perturb") with its stage record: the first
+    barrier's iterations and seconds, the attempts, the fixed counts, how
+    it finished and the finishing pivots.  The record is read from the
+    crossover's log messages and the facade's log file; a parse that
+    finds no barrier row, no attempt, or not exactly one way of finishing
+    fails the phase."""
+    import re
+
+    os.makedirs(BUILD, exist_ok=True)
+    log = os.path.join(BUILD, f"{tag}.log")
+    if os.path.exists(log):
+        os.remove(log)
+    with _Records("smart_crossover_tpu_torch.lp_methods.algorithms") as rec:
+        t0 = time.perf_counter()
+        out = scx.solve_lp(lp, method="barrier_perturb",
+                           settings=scx.SolverSettings(log_file=log))
+        wall = time.perf_counter() - t0
+    rows = solve_log(log)
+    msgs = rec.messages
+    attempts = sum(msg.startswith("*** building and solving a perturbed")
+                   for msg in msgs)
+    fixed = [list(map(int, re.findall(r"\d+", msg)))
+             for msg in msgs if msg.startswith("  fixed variables")]
+    simplex = [r for r in rows if r["method"] == "primal_simplex"]
+    ways = {"direct": any("found directly" in msg for msg in msgs),
+            "fallback": any("perturbation failed" in msg for msg in msgs)}
+    # the finishing simplex from the perturbed vertex logs no message of
+    # its own: it is the primal simplex row of a run that did neither
+    ways["finishing_simplex"] = bool(simplex) and not any(ways.values())
+    finish = [k for k, hit in ways.items() if hit]
+    require(bool(rows) and rows[0]["method"] == "barrier"
+            and "bar_iter_count" in rows[0],
+            f"{tag}: no barrier row in the facade's log: {rows[:1]}")
+    require(1 <= attempts <= 8 and len(fixed) == attempts,
+            f"{tag}: {attempts} attempts, {len(fixed)} fixed-count records")
+    require(len(finish) == 1, f"{tag}: ways of finishing found: {finish}")
+    require((finish[0] == "direct") == (not simplex),
+            f"{tag}: finished {finish[0]} with {len(simplex)} simplex rows")
+    return out, {
+        "status": out.status, "obj": out.obj_val, "wall_s": wall,
+        "barrier_iters": int(rows[0]["bar_iter_count"]),
+        "barrier_s": float(rows[0]["runtime"].rstrip("s")),
+        "attempts": attempts,
+        "fixed_variables_constraints_per_attempt": fixed,
+        "finish": finish[0],
+        "finishing_pivots": int(simplex[-1]["iter_count"]) if simplex else 0,
+        "total_pivots": out.iter_count,
+        "total_barrier_iters": out.bar_iter_count}
+
+
+def phase_perturb(scx, m, n, seed):
+    """The perturbation crossover on random_sparse_lp(m, n, seed), then the
+    device projector on the product get_projector_Xc projects with."""
+    import scipy.sparse as sp
+    import torch
+
+    from smart_crossover_tpu_torch.data import random_sparse_lp
+    from smart_crossover_tpu_torch.lp_methods.algorithms import (
+        get_x_perturb_val)
+    from smart_crossover_tpu_torch.parameters import PERTURB_THRESHOLD
+    from smart_crossover_tpu_torch.solvers.projection import (
+        apply_projector, apply_projector_torch)
+
+    lp = random_sparse_lp(m=m, n=n, seed=seed)
+    ref, highs_s = highs_lp(lp)
+    out, rec = perturb_run(scx, lp, f"perturb_{m}x{n}")
+    rel = rel_to(out.obj_val, ref)
+    # perturb_c's x: min(x - l, u - x) at the barrier point, floored at
+    # 1e-6, free columns at 1
+    x = get_x_perturb_val(lp, out.x_bar)
+    x[x < PERTURB_THRESHOLD] = 1e-6
+    x[lp.get_free_ind()] = 1.0
+    xx = lp.get_standard_x(x)
+    Y = lp.get_standard_A() @ sp.diags(xx)
+    v = xx * lp.get_standard_c()
+    t0 = time.perf_counter()
+    p_host = apply_projector(Y, v)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    Yd = Y.toarray()
+    p_dev, dev_ms, dev_all = sync_time(lambda: apply_projector_torch(Yd, v),
+                                       3)
+    p_dev = p_dev.double().cpu().numpy()
+    proj_rel = float(np.linalg.norm(p_dev - p_host)
+                     / np.linalg.norm(p_host))
+    Yv = np.linalg.norm(Y @ v)
+    resid = float(np.linalg.norm(Y @ p_dev) / Yv)
+    emit({"phase": f"perturb_{m}x{n}", "seed": seed, "nnz": int(lp.A.nnz),
+          "le_rows": int((lp.sense == "<").sum()),
+          "free_columns": int(lp.get_free_ind().size), **rec,
+          "highs_obj": ref, "highs_s": highs_s, "rel_to_highs": rel,
+          "projector": {"shape": list(Y.shape), "rel_to_host": proj_rel,
+                        "residual_rel": resid,
+                        "host_residual_rel": float(
+                            np.linalg.norm(Y @ p_host) / Yv),
+                        "card_ms": dev_ms, "card_all_ms": dev_all,
+                        "host_ms": host_ms},
+          "tolerance": {"obj_rtol": PERTURB_OBJ_RTOL, "proj_rtol": PROJ_RTOL,
+                        "proj_residual": PROJ_RESIDUAL}})
+    require(out.status == "OPTIMAL", f"barrier_perturb: {out.status}")
+    require(rel <= PERTURB_OBJ_RTOL, f"barrier_perturb off HiGHS: {rel}")
+    require(bool(np.isfinite(p_dev).all()), "card projector not finite")
+    require(proj_rel <= PROJ_RTOL, f"card projector off host: {proj_rel}")
+    require(resid <= PROJ_RESIDUAL, f"card projector residual: {resid}")
+
+
+def phase_cli(scx, m, n, seed):
+    """The CLI on an .mps file the port writes, then solve_lp's barrier
+    crossover against the perturbation crossover on the LP read back."""
+    import re
+
+    from smart_crossover_tpu_torch.data import (
+        random_sparse_lp, read_mps, write_mps)
+
+    os.makedirs(BUILD, exist_ok=True)
+    path = os.path.join(BUILD, f"lp_{m}x{n}_seed{seed}.mps")
+    write_mps(random_sparse_lp(m=m, n=n, seed=seed), path)
+    lp = read_mps(path)
+    ref, highs_s = highs_lp(lp)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "smart_crossover_tpu_torch",
+                        "solve", path, "--method", "barrier_perturb"],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    found = re.search(r"obj_val=(\S+),", r.stdout)
+    cli_obj = float(found.group(1)) if found else None
+    t0 = time.perf_counter()
+    bar = scx.solve_lp(lp, method="barrier")
+    bar_s = time.perf_counter() - t0
+    ptb, rec = perturb_run(scx, lp, f"cli_{m}x{n}")
+    rec_out = {"phase": f"cli_mps_{m}x{n}", "seed": seed,
+               "file": os.path.relpath(path), "cli_rc": r.returncode,
+               "cli_stdout": r.stdout.strip()[-400:], "cli_wall_s": cli_s,
+               "cli_obj": cli_obj, "highs_obj": ref, "highs_s": highs_s,
+               "barrier": {"status": bar.status, "wall_s": bar_s,
+                           "finishing_pivots": bar.iter_count,
+                           "barrier_iters": bar.bar_iter_count,
+                           "rel_to_highs": rel_to(bar.obj_val, ref)},
+               "barrier_perturb": {**rec,
+                                   "rel_to_highs": rel_to(ptb.obj_val, ref)},
+               "tolerance": {"obj_rtol": PERTURB_OBJ_RTOL}}
+    emit(rec_out)
+    require(r.returncode == 0,
+            f"CLI exited {r.returncode}: {r.stderr.strip()[-600:]}")
+    require(cli_obj is not None and rel_to(cli_obj, ref) <= PERTURB_OBJ_RTOL,
+            f"CLI objective {cli_obj} off HiGHS {ref}")
+    require(bar.status == ptb.status == "OPTIMAL",
+            f"barrier {bar.status}, barrier_perturb {ptb.status}")
+    require(rel_to(bar.obj_val, ref) <= PERTURB_OBJ_RTOL
+            and rel_to(ptb.obj_val, ref) <= PERTURB_OBJ_RTOL,
+            "an in-process vertex is off HiGHS")
+
+
+def phase_solve_ot(scx, cert_obj):
+    """solve_ot on instance 0 of the 16 x 784^2 batch (seed 1); `cert_obj`
+    is main_16x784x784's certified objective of that instance."""
+    import torch
+
+    import bench
+
+    s, d, M = (a[0] for a in bench.make_batch(16, 784, 784, seed=1))
+    ot = scx.OptTransport(s=s, d=d, M=M)
+    rec = {"phase": "solve_ot_784", "seed": 1, "instance": 0,
+           "certified_obj": cert_obj,
+           "tolerance": {"obj_rtol": EXACT_RTOL}}
+    counts = {}
+    runs = (("sinkhorn", scx.SolverSettings()),
+            ("device_simplex",
+             scx.SolverSettings(deviceSimplexEngine="mega")))
+    for method, settings in runs:
+        torch.cuda.synchronize()
+        scx.reset_kernel_launch_counts()
+        t0 = time.perf_counter()
+        out = scx.solve_ot(ot, method=method, settings=settings)
+        wall = time.perf_counter() - t0
+        counts[method] = scx.kernel_launch_counts()
+        rec[method] = {"status": out.status, "obj": out.obj_val,
+                       "rel_to_certified": abs(out.obj_val - cert_obj)
+                       / abs(cert_obj), "wall_s": wall,
+                       "iter_count": out.iter_count,
+                       "launches": counts[method]}
+        require(out.x is not None and out.x.shape == (M.size,)
+                and bool(np.isfinite(out.x).all()),
+                f"solve_ot({method}) output malformed")
+    try:
+        scx.solve_ot(ot, method="device_simplex")
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    rec["default_engine_raises"] = raised
+    emit(rec)
+    sk, ds = counts["sinkhorn"], counts["device_simplex"]
+    require(rec["sinkhorn"]["status"] == "APPROXIMATE",
+            f"solve_ot(sinkhorn): {rec['sinkhorn']['status']}")
+    require(sk["sinkhorn_fused"] == 1, f"sinkhorn launched K1: {sk}")
+    require(rec["device_simplex"]["status"] == "OPTIMAL",
+            f"solve_ot(device_simplex): {rec['device_simplex']['status']}")
+    require(rec["device_simplex"]["rel_to_certified"] <= EXACT_RTOL,
+            "solve_ot(device_simplex) off the certified objective")
+    require(ds["sinkhorn_fused"] == 1 and ds["transport_simplex_mega"] == 1,
+            f"device_simplex launches: {ds}")
+    require(raised is not None and "1.6b" in raised,
+            f"the default engine did not raise naming 1.6b: {raised}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -973,7 +1312,7 @@ def main() -> int:
 
     kernels += [phase_k3(512, 2048, seed=3), phase_k4(512, 2048, seed=3),
                 phase_k5()]
-    single = phase_lp_single(scx, 512, 2048, seed=7)
+    single, single_ref = phase_lp_single(scx, 512, 2048, seed=7)
     fleet, _ = phase_lp_fleet(scx, 32, 64, 256, seed=5, reps=5)
     fleet_big, big_ms = phase_lp_fleet(scx, 64, 256, 512, seed=6, reps=3)
     kernels[2]["launches"] = single["adaptive"]["pdhg_chunk"]
@@ -984,6 +1323,17 @@ def main() -> int:
     kernels[4]["call_ms_64x256x512"] = big_ms
     kernels[4]["bound_ms_64x256x512"] = bound(*fleet_work(64, 256, 512,
                                                           4000))[0]
+
+    front = phase_lp_front_door(scx, 512, 2048, seed=7, ref=single_ref)
+    phase_perturb(scx, 800, 3200, seed=0)
+    phase_cli(scx, 800, 3200, seed=1)
+    ot_counts = phase_solve_ot(scx, cobj7[0])
+    kernels[2]["launches_lp_front_door"] = front["pdhg_chunk"]
+    for k in kernels[:2]:
+        k["launches_solve_ot_device_simplex"] = \
+            ot_counts["device_simplex"][k["name"]]
+    kernels[0]["launches_solve_ot_sinkhorn"] = \
+        ot_counts["sinkhorn"]["sinkhorn_fused"]
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.")

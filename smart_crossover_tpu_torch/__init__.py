@@ -1,8 +1,11 @@
 """PyTorch / CUDA port of smart_crossover_tpu on an NVIDIA Hopper card: the
 certified-exact batched OT crossover (device route with host repair, and
 the host route), the paper's network crossover (``sinkhorn`` then
-``network_crossover``: TNET, CNET_OT, CNET_MCF), and the dense-LP
-first-order path (PDHG warm start, then an exact host vertex).
+``network_crossover``: TNET, CNET_OT, CNET_MCF), the dense-LP
+first-order path (PDHG warm start, then an exact host vertex), and the LP
+front door: the ``solve_lp`` / ``solve_mcf`` / ``solve_ot`` facade and the
+paper's perturbation crossover for general LPs (``run_perturb_algorithm``,
+host barrier and simplex).
 
 The layout mirrors ``smart_crossover_tpu/``; each module names its JAX
 counterpart.  Plain tensor code is PyTorch; every TPU kernel of the JAX
@@ -13,11 +16,14 @@ from smart_crossover_tpu_torch._build import (
     kernel_launch_counts,
     reset_kernel_launch_counts,
 )
+from smart_crossover_tpu_torch.lp_methods import run_perturb_algorithm
 from smart_crossover_tpu_torch.models import (
     Basis,
+    GeneralLP,
     MinCostFlow,
     OptTransport,
     Output,
+    StandardLP,
 )
 from smart_crossover_tpu_torch.network_methods import (
     column_generation,
@@ -43,15 +49,22 @@ from smart_crossover_tpu_torch.solvers.pdhg import PDHGResult, pdhg_solve
 from smart_crossover_tpu_torch.solvers.pdhg_batched import pdhg_dense_batched
 from smart_crossover_tpu_torch.solvers.settings import SolverSettings
 from smart_crossover_tpu_torch.solvers.sinkhorn import sinkhorn
+from smart_crossover_tpu_torch.solvers.solving import (
+    solve_lp,
+    solve_mcf,
+    solve_ot,
+)
 
 __all__ = [
     "Basis",
+    "GeneralLP",
     "MinCostFlow",
     "OTCertificate",
     "OptTransport",
     "Output",
     "PDHGResult",
     "SolverSettings",
+    "StandardLP",
     "batched_lp_crossover",
     "batched_tnet",
     "batched_tnet_exact",
@@ -65,7 +78,11 @@ __all__ = [
     "pdhg_dense_batched",
     "pdhg_solve",
     "reset_kernel_launch_counts",
+    "run_perturb_algorithm",
     "sinkhorn",
     "sinkhorn_plan_fused",
+    "solve_lp",
+    "solve_mcf",
+    "solve_ot",
     "tnet_single",
 ]

@@ -1,2 +1,28 @@
-"""data of the PyTorch port (see smart_crossover_tpu/data); only the
-synthetic min-cost-flow generators are ported so far."""
+"""Instance readers, writers and generators of the PyTorch port (host
+numpy / scipy copies of ``smart_crossover_tpu/data``).  Not ported yet:
+``filehandling.py``, ``results.py`` and ``ot_gen.py`` (ROADMAP 1.14b)."""
+from smart_crossover_tpu_torch.data.dimacs import read_dimacs_min
+from smart_crossover_tpu_torch.data.dimacs_write import write_dimacs_min
+from smart_crossover_tpu_torch.data.loaders import load_instance, save_instance
+from smart_crossover_tpu_torch.data.lp_format import read_lp, write_lp
+from smart_crossover_tpu_torch.data.lp_gen import random_sparse_lp
+from smart_crossover_tpu_torch.data.mcf_gen import (
+    goto_like_mcf,
+    transshipment_mcf,
+)
+from smart_crossover_tpu_torch.data.mps import read_mps
+from smart_crossover_tpu_torch.data.mps_write import write_mps
+
+__all__ = [
+    "goto_like_mcf",
+    "load_instance",
+    "random_sparse_lp",
+    "read_dimacs_min",
+    "read_lp",
+    "read_mps",
+    "save_instance",
+    "transshipment_mcf",
+    "write_dimacs_min",
+    "write_lp",
+    "write_mps",
+]

@@ -9,6 +9,15 @@ TOLERANCE_FOR_REDUCED_COSTS = 1e-6
 # by this factor per round
 COLUMN_GENERATION_RATIO = 2
 
+# perturbation crossover (lp_methods/algorithms.py)
+OPTIMAL_FACE_ESTIMATOR = 1e-3
+OPTIMAL_FACE_ESTIMATOR_UPDATE_RATIO = 1e-5
+PERTURB_THRESHOLD = 1e-6
+CONSTANT_SCALE_FACTOR = 1e-2
+PRIMAL_DUAL_GAP_THRESHOLD = 1e-8
+PROJECTOR_THRESHOLD = 1e-8
+PERTURB_UPPER_BOUND = 1e6
+
 # entropic regularisation of the Sinkhorn warm start, relative to max cost
 SINKHORN_DEFAULT_REG = 1e-2
 NETWORK_SIMPLEX_MAX_ITERS = 10_000_000

@@ -13,9 +13,9 @@ Python: one chunk of ``check_every`` iterations per step, run by the
 kernel wrappers of ``ops/pdhg_chunk.py`` (the CUDA kernels on a CUDA
 tensor, their plain versions on the CPU), then the restart test, the KKT
 scores and the primal-weight update as tensor ops, and one host read per
-chunk for the loop condition.  Not ported yet: the BCOO and host-scipy
-routes for a sparse A (ROADMAP 1.11) and ``pdhg_general_lp``, which needs
-the ``GeneralLP`` model (ROADMAP 1.14).
+chunk for the loop condition.  ``pdhg_general_lp`` runs a ``GeneralLP``
+through the dense route.  Not ported yet: the BCOO and host-scipy routes
+for a sparse A (ROADMAP 1.11).
 """
 from __future__ import annotations
 
@@ -498,3 +498,28 @@ def pdhg_solve(A, b, c, l, u, sense=None,
                           seconds=time.perf_counter() - t0),
                       primal_residual=pres, dual_residual=dres,
                       gap=gap)
+
+
+def pdhg_general_lp(lp, tol: float = 1e-6, max_iters: int = 100_000,
+                    x0=None, y0=None, sparse: bool | None = None,
+                    mode: str = "adaptive", device=None) -> PDHGResult:
+    """PDHG on a GeneralLP, through the dense ``pdhg_solve`` (K3 or K4 on
+    the card).  The JAX function keeps A sparse (BCOO) when asked, or by
+    default for big sparse instances (m n > 1e6 and nnz < 0.1 m n); that
+    route is not ported, so the port raises ``NotImplementedError``
+    (ROADMAP 1.11) wherever the JAX function would take it, rather than
+    densify A.  ``device`` as for ``pdhg_solve``."""
+    A_sp = ssp.csr_matrix(lp.A)
+    if sparse is None:
+        sparse = (A_sp.shape[0] * A_sp.shape[1] > 1_000_000
+                  and A_sp.nnz < 0.1 * A_sp.shape[0] * A_sp.shape[1])
+    if sparse:
+        raise NotImplementedError(
+            f"pdhg_general_lp: {A_sp.shape[0]}x{A_sp.shape[1]} with "
+            f"{A_sp.nnz} nonzeros takes the sparse (BCOO) route, which is "
+            "not ported yet (ROADMAP 1.11); pass sparse=False to run it "
+            "dense")
+    A = np.asarray(A_sp.todense())
+    return pdhg_solve(A, lp.b, lp.c, lp.l, lp.u, sense=lp.sense, tol=tol,
+                      max_iters=max_iters, x0=x0, y0=y0, mode=mode,
+                      device=device)
