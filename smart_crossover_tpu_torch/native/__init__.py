@@ -1,7 +1,8 @@
 """Native (C++) network-simplex core, built with g++ at first use.
 
 Port of ``smart_crossover_tpu/native/{__init__,build}.py``.  The source
-``netsimplex.cpp`` (a copy of the JAX package's) is compiled with the JAX
+``netsimplex.cpp`` (a byte-for-byte copy of the JAX package's, so that the
+parity tests can run both packages on one library) is compiled with the JAX
 package's flags into ``build/smart_crossover_tpu_torch/`` beside the
 package, under a name hashed from the source, the flags and the CPU that
 ``-march=native`` resolves to (so a library built on another machine is

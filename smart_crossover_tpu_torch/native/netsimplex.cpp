@@ -1,10 +1,7 @@
 // Warm-startable primal network simplex — native core.
 //
-// Copy of smart_crossover_tpu/native/netsimplex.cpp, unchanged but for
-// this note and the oracle's path below.
-//
 // Same algorithm as the numpy implementation in
-// smart_crossover_tpu_torch/solvers/network_simplex.py (which doubles as its test
+// smart_crossover_tpu/solvers/network_simplex.py (which doubles as its test
 // oracle), with the classic efficiency upgrades: altering-candidate-list
 // pricing (a block-scan major refill plus cheap minor re-pricing of a short
 // hot list), stamped alternating cycle walks (no depth maintenance), and

@@ -15,6 +15,10 @@ from smart_crossover_tpu.models import OptTransport
 from smart_crossover_tpu_torch import interop
 from smart_crossover_tpu_torch.lp_methods import algorithms as P_alg
 from tests.test_lp_methods import highs_on_general, random_general_lp
+from tests.test_torch_network_simplex import same_native_core  # noqa: F401
+
+# the JAX side's network simplex runs the port's C++ core
+pytestmark = pytest.mark.usefixtures("same_native_core")
 
 OBJ_RTOL = 1e-8
 

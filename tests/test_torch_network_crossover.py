@@ -49,6 +49,10 @@ from smart_crossover_tpu_torch.solvers.sinkhorn import (
     sinkhorn_potentials_annealed,
     sinkhorn_potentials_tol,
 )
+from tests.test_torch_network_simplex import same_native_core  # noqa: F401
+
+# the JAX side's network simplex runs the port's C++ core
+pytestmark = pytest.mark.usefixtures("same_native_core")
 
 CPU = "cpu"
 OBJ_RTOL = 1e-9          # the port's exact objective against the JAX one

@@ -1,6 +1,7 @@
 """The port's network simplex (numpy core and native C++ core), its build,
 and the MCF flow ranking against the JAX package's originals (CPU)."""
 import concurrent.futures as cf
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +37,31 @@ from smart_crossover_tpu_torch.solvers.network_simplex import (
 )
 
 MAX_ITER, TOL = 10_000_000, 1e-9
+
+
+@pytest.fixture(scope="module")
+def same_native_core():
+    """Run the JAX package's network simplex on the port's native library,
+    for a whole test module (its module-scoped fixtures included).
+
+    The JAX loader caches its first answer per process: the prebuilt
+    ``smart_crossover_tpu/native/libscxnative.so`` where it exists (it is
+    not committed; ``tests/test_native.py`` builds it), else its numpy
+    core, whose duals differ from the C++ core's.  Test modules that hold
+    the two packages' network-simplex answers equal use this fixture so
+    that both sides run one C++ core, built from byte-identical sources,
+    whatever the order in which the workers build and load.  The loader's
+    cache and the bridge's argument-types flag are restored afterwards."""
+    import smart_crossover_tpu.native as j_native
+    import smart_crossover_tpu.native.netsimplex as j_bridge
+
+    j_src = Path(j_native.__file__).parent / "netsimplex.cpp"
+    assert j_src.read_bytes() == native.SOURCE.read_bytes()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_native, "_LIB", native.library())
+        mp.setattr(j_native, "_LOAD_ATTEMPTED", True)
+        mp.setattr(j_bridge, "_configured", False)
+        yield
 
 
 def _ot(seed, ns, nd):
@@ -162,3 +188,22 @@ def test_mcf_flow_indicators_match_jax(seed):
     np.testing.assert_allclose(ind.numpy(), np.asarray(jind), rtol=0,
                                atol=1e-12)
     assert (ind.numpy() > 0).any()
+
+
+def test_same_native_core_pins_the_jax_loader(same_native_core):
+    """Under the fixture, the JAX package's facade takes the C++ core even
+    where its own library is absent or disabled, and answers as the
+    port's native core does, duals included."""
+    from smart_crossover_tpu.native import native_available
+    from smart_crossover_tpu.solvers.network_simplex import (
+        network_simplex as j_network_simplex,
+    )
+
+    assert native_available()
+    mcf, jmcf, _ = _cases("transshipment_60")
+    a = j_network_simplex(jmcf)
+    b = network_simplex(mcf)
+    assert a.status == b.status == "OPTIMAL"
+    assert a.iter_count == b.iter_count
+    np.testing.assert_array_equal(a.x, b.x)
+    np.testing.assert_array_equal(a.y, b.y)

@@ -28,6 +28,10 @@ from smart_crossover_tpu_torch.solvers.settings import (
     SolverSettings as P_Settings,
 )
 from tests.test_torch_lp_host import presolve_case, same
+from tests.test_torch_network_simplex import same_native_core  # noqa: F401
+
+# the JAX side's network simplex runs the port's C++ core
+pytestmark = pytest.mark.usefixtures("same_native_core")
 
 EXACT_RTOL = 1e-9
 
