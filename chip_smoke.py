@@ -30,12 +30,31 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
   network_crossover_goto128
           CNET_MCF on a degree-regular GOTO-like MCF (128^2 nodes, 98,304
           arcs) from HiGHS's optimum plus noise, equal to HiGHS to 1e-9,
-          against a cold native network simplex;
+          against a cold native network simplex; then the first-order
+          routes on the card: solve_mcf(method="first_order") with
+          crossover on, and CNET_MCF from a pdhg_mcf_device warm start,
+          each equal to HiGHS to 1e-9, with no dense PDHG kernel launched
+          and no dense chunk's plain version called; ms per Halpern
+          iteration with the incidence operator (index_add_) and with CSR;
+  pdhg_mcf_goto17
+          pdhg_mcf_device at scripts/run_goto17.py's scale (362^2 nodes,
+          786,264 arcs), 5000 Halpern iterations: ms per iteration, the
+          relative KKT residuals at the start, after 250 iterations and at
+          the end (finite; the primal one below its start, the sum below
+          the 250-iteration one), both operators' ms per iteration;
   tnet_exact_64x256x256
           batched_tnet_exact on main_64x256x256's batch: the host route,
           'auto' (which must take the mega route) and the mega route
           capped at 100 pivots (which must repair some instance), 64/64
           optimal each, equal to the certified objectives to 1e-9;
+  device_engines
+          batched_tnet_exact with the tensor pivot engines: 'parent' and
+          'anc' at 64 x 256^2 (seed 0), 'packed' at 16 x 784^2 (seed 1),
+          all certified, equal to the main phases' certified objectives to
+          1e-9, K1 launched once and K2 never; each engine's pivot stage
+          against K2's on the same warm start; the 'mask' oracle at 64 x
+          256^2, and where that takes more than 60 s again at a multiple
+          of 8 instances that fits (the cut is printed);
   k3, k4  the PDHG and Halpern chunk kernels against their plain versions
           at 512 x 2048, one 64-iteration chunk, with the median ms of each,
           ms per iteration and the cluster plan (cluster size, resident
@@ -50,7 +69,9 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           from the warm start to an exact vertex, equal to HiGHS to 1e-8;
   main_lp_fleet_32x64x256, main_lp_fleet_64x256x512
           batched_lp_crossover(warm_engine="pdhg"): every instance optimal
-          and equal to HiGHS to 1e-8;
+          and equal to HiGHS to 1e-8 (at 64 x 256 x 512 the first 32
+          instances are crossed over: the host crossover took 188-344 s
+          of the script's 1200 s; K5 is timed on all 64);
   lp_front_door_512x2048
           the LP front door: solve_lp(method="first_order") on the single
           LP as a GeneralLP, tol 1e-4, adaptive: OPTIMAL, K3 launched,
@@ -78,10 +99,10 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           process solve_lp's barrier against barrier_perturb on that LP;
   solve_ot_784
           instance 0 of the 784^2 batch through solve_ot: 'sinkhorn'
-          (APPROXIMATE, K1 once), 'device_simplex' with engine 'mega'
-          (OPTIMAL, equal to main_16x784x784's certified objective to 1e-9,
-          K1 and K2 once each), and the default engine raising (ROADMAP
-          1.6b);
+          (APPROXIMATE, K1 once), 'device_simplex' with the default engine
+          'parent' (K1 once, K2 never) and with 'mega' (K1 and K2 once
+          each), both OPTIMAL and equal to main_16x784x784's certified
+          objective to 1e-9;
 then the card's nvidia-smi line, the kernels' summary (each kernel's
 median ms, launches on the main path, the plain version's ms, and its
 bound: the largest of the operations these inputs need at the card's
@@ -93,6 +114,7 @@ and prints no result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -126,6 +148,8 @@ K5_LONG_AVG_RTOL = 5e-2
 LP_OBJ_RTOL = 1e-8      # exact vertex vs HiGHS
 EXACT_RTOL = 1e-9       # network crossover / exact OT routes vs the
                         # certified or HiGHS objective (all f64 host)
+GOTO_FOM_TOL = 1e-3     # solve_mcf(first_order)'s PDHG tolerance (float32
+                        # on the card) before its network-simplex crossover
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, and HBM3
@@ -541,18 +565,108 @@ def phase_network_crossover(scx, cert_obj):
     return counts, k1_ms, plain_ms
 
 
+@contextlib.contextmanager
+def sparse_route_only():
+    """While the sparse first-order route runs: the dense PDHG chunks'
+    plain versions raise if called, and the launch counts are zeroed so
+    that the caller can check K3, K4 and K5 launched no time."""
+    import smart_crossover_tpu_torch as scx
+    from smart_crossover_tpu_torch.ops import pdhg_chunk as tpc
+
+    saved = tpc.pdhg_chunk_plain, tpc.halpern_chunk_plain
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("a dense PDHG chunk's plain version was called "
+                           "on the sparse route")
+
+    tpc.pdhg_chunk_plain = tpc.halpern_chunk_plain = refuse
+    scx.reset_kernel_launch_counts()
+    try:
+        yield
+    finally:
+        tpc.pdhg_chunk_plain, tpc.halpern_chunk_plain = saved
+
+
+def require_no_dense_pdhg(scx, what):
+    counts = scx.kernel_launch_counts()
+    dense = {k: counts[k] for k in ("pdhg_chunk", "halpern_chunk",
+                                    "pdhg_batched")}
+    require(not any(dense.values()),
+            f"{what} launched a dense PDHG kernel: {dense}")
+    return counts
+
+
+def mcf_kkt(mcf, x, y):
+    """(primal, dual, gap) relative KKT residuals of an MCF pair, host
+    f64, as pdhg_solve measures them (l = 0, u = the capacities)."""
+    import scipy.sparse as ssp
+
+    from smart_crossover_tpu_torch.solvers.pdhg import _host_kkt
+
+    return _host_kkt(ssp.csr_matrix(mcf.A), np.asarray(mcf.b, float),
+                     np.asarray(mcf.c, float), np.zeros(mcf.n),
+                     np.asarray(mcf.u, float), np.ones(mcf.m, bool), x, y)
+
+
+def operator_ms(mcf, iters):
+    """ms per Halpern PDHG iteration on the card, float32, of the MCF's
+    incidence matrix as the index_add_/gather operator and as a CSR
+    operator, the same run of `iters` iterations timed for each (two synced
+    runs after a warm-up of one chunk, median)."""
+    import torch
+
+    from smart_crossover_tpu_torch.ops.pdhg_sparse import (
+        CSROperator, IncidenceOperator)
+    from smart_crossover_tpu_torch.solvers import pdhg_mcf as pm
+    from smart_crossover_tpu_torch.solvers.pdhg import _pdhg_core_halpern
+
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    A = mcf.A.tocoo()
+    ops = {"index_add": IncidenceOperator(mcf.tails, mcf.heads, mcf.m,
+                                          torch.float32, DEVICE),
+           "csr": CSROperator(A.row, A.col, A.data, A.shape, torch.float32,
+                              DEVICE)}
+    b = torch.tensor(mcf.b, **f32)
+    c = torch.tensor(mcf.c, **f32)
+    u = torch.tensor(mcf.u, **f32)
+    l = torch.zeros(mcf.n, **f32)
+    x0, y0 = torch.zeros(mcf.n, **f32), torch.zeros(mcf.m, **f32)
+    eq = torch.ones(mcf.m, dtype=torch.bool, device=DEVICE)
+    v = torch.tensor(pm._start_vector(mcf.n), **f32)
+    out = {}
+    for name, op in ops.items():
+        opn = pm._power_opnorm(op, v)
+
+        def run(k):
+            return _pdhg_core_halpern(op, b, c, l, u, eq, opn, x0, y0,
+                                      max_iters=k, check_every=250,
+                                      restart_period=500, tol=0.0)
+
+        run(250)
+        _, ms, all_ms = sync_time(lambda: run(iters), 2)
+        out[name] = {"ms_per_iteration": ms / iters,
+                     "all_ms_per_iteration": [t / iters for t in all_ms]}
+    return out
+
+
 def phase_goto(scx):
     """CNET_MCF on goto_like_mcf(128, 128, 4, regular=True, seed=42), the
-    generator scripts/run_goto17.py runs at 362^2.  The warm start is
+    generator scripts/run_goto17.py runs at 362^2, from three warm starts:
     HiGHS's optimum plus U(-0.05, 0.05) u noise, clipped to [0, u] (numpy
-    seed 0): it stands in for the barrier or PDHG flow, as the arc-list MCF
-    PDHG (ROADMAP 1.11) is not ported yet."""
+    seed 0); then the first-order routes on the card: solve_mcf(method=
+    'first_order') with crossover on (PDHG on the sparse incidence matrix,
+    then the network simplex), and network_crossover(cnet_mcf) from a
+    pdhg_mcf_device warm start (Halpern, 5000 iterations, tol 1e-4).
+    Every vertex equal to HiGHS to 1e-9; no dense PDHG kernel launched,
+    no dense chunk's plain version called.  Returns the HiGHS objective
+    and the first-order launch counts."""
     import torch
     from scipy.optimize import linprog
 
     from smart_crossover_tpu_torch.data.mcf_gen import goto_like_mcf
     from smart_crossover_tpu_torch.solvers.network_simplex import (
         network_simplex)
+    from smart_crossover_tpu_torch.solvers.pdhg_mcf import pdhg_mcf_device
 
     mcf = goto_like_mcf(128, 128, extra_arc_factor=4, regular=True, seed=42)
     t0 = time.perf_counter()
@@ -572,17 +686,108 @@ def phase_goto(scx):
     cold = network_simplex(mcf)
     cold_s = time.perf_counter() - t0
     rel = abs(out.obj_val - ref.fun) / abs(ref.fun)
-    emit({"phase": "network_crossover_goto128", "nodes": mcf.m,
-          "arcs": mcf.n, "status": out.status, "obj": out.obj_val,
-          "highs_obj": float(ref.fun), "rel_to_highs": rel,
-          "highs_s": highs_s, "wall_s": wall, "pivots": out.iter_count,
-          **stats, "cold_status": cold.status, "cold_pivots": cold.iter_count,
-          "cold_s": cold_s, "cold_rel_to_highs":
-          abs(cold.obj_val - ref.fun) / abs(ref.fun),
-          "tolerance": {"obj_rtol": EXACT_RTOL}})
+    rec = {"phase": "network_crossover_goto128", "nodes": mcf.m,
+           "arcs": mcf.n, "status": out.status, "obj": out.obj_val,
+           "highs_obj": float(ref.fun), "rel_to_highs": rel,
+           "highs_s": highs_s, "wall_s": wall, "pivots": out.iter_count,
+           **stats, "cold_status": cold.status,
+           "cold_pivots": cold.iter_count, "cold_s": cold_s,
+           "cold_rel_to_highs": abs(cold.obj_val - ref.fun) / abs(ref.fun),
+           "tolerance": {"obj_rtol": EXACT_RTOL}}
     require(out.status == "OPTIMAL", f"cnet_mcf: {out.status}")
     require(rel <= EXACT_RTOL, f"cnet_mcf off HiGHS: {rel}")
     require(cold.status == "OPTIMAL", f"cold network simplex: {cold.status}")
+
+    # solve_mcf(first_order), crossover on: the facade's sparse route
+    settings = scx.SolverSettings(barrierTol=GOTO_FOM_TOL,
+                                  firstOrderMaxIters=20_000)
+    with sparse_route_only():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fo = scx.solve_mcf(mcf, method="first_order", settings=settings)
+        fo_wall = time.perf_counter() - t0
+        counts = require_no_dense_pdhg(scx, "solve_mcf(first_order)")
+    fo_rel = abs(fo.obj_val - ref.fun) / abs(ref.fun)
+    rec["solve_mcf_first_order"] = {
+        "status": fo.status, "obj": fo.obj_val, "rel_to_highs": fo_rel,
+        "wall_s": fo_wall, "pdhg_iterations": fo.bar_iter_count,
+        "pdhg_s": fo.runtime.total_seconds(), "pivots": fo.iter_count,
+        "tol": GOTO_FOM_TOL, "launches": counts}
+    # network_crossover(cnet_mcf) from a pdhg_mcf_device warm start
+    with sparse_route_only():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xw, yw, iters, conv, rt = pdhg_mcf_device(mcf, tol=1e-4,
+                                                  max_iters=5000)
+        warm_s = time.perf_counter() - t0
+        counts_w = require_no_dense_pdhg(scx, "pdhg_mcf_device")
+    stats_w = {}
+    t0 = time.perf_counter()
+    outw = scx.network_crossover(np.clip(xw, 0, mcf.u), mcf=mcf,
+                                 method="cnet_mcf", stats=stats_w)
+    cross_s = time.perf_counter() - t0
+    w_rel = abs(outw.obj_val - ref.fun) / abs(ref.fun)
+    rec["pdhg_mcf_device_cnet_mcf"] = {
+        "pdhg_iterations": iters, "pdhg_converged": conv,
+        "pdhg_s": warm_s, "pdhg_ms_per_iteration": warm_s * 1e3 / iters,
+        "kkt_rel": mcf_kkt(mcf, xw, yw), "status": outw.status,
+        "obj": outw.obj_val, "rel_to_highs": w_rel,
+        "crossover_s": cross_s, "pivots": outw.iter_count, **stats_w,
+        "launches": counts_w}
+    rec["operators_halpern_2000"] = operator_ms(mcf, 2000)
+    emit(rec)
+    require(fo.status == "OPTIMAL" and fo_rel <= EXACT_RTOL,
+            f"solve_mcf(first_order): {fo.status}, {fo_rel} off HiGHS")
+    require(outw.status == "OPTIMAL" and w_rel <= EXACT_RTOL,
+            f"cnet_mcf from pdhg_mcf_device: {outw.status}, {w_rel}")
+    require(bool(np.isfinite(xw).all() and np.isfinite(yw).all()),
+            "pdhg_mcf_device output not finite")
+    return counts, counts_w
+
+
+def phase_goto17(scx):
+    """pdhg_mcf_device at the flagship scale of scripts/run_goto17.py:
+    goto_like_mcf(362, 362, 4, regular=True), 131,044 nodes and 786,264
+    arcs, 5000 Halpern iterations on the card (tol 0: no early stop).
+    The relative KKT residuals (host f64) at the start (x = 0, y = 0: only
+    the primal one is nonzero there), after the first 250-iteration chunk
+    and at the end must be finite; the primal residual must fall below
+    its start and the summed score below the first chunk's.  Then the
+    incidence operator against a CSR operator, ms per Halpern iteration."""
+    import torch
+
+    from smart_crossover_tpu_torch.data.mcf_gen import goto_like_mcf
+    from smart_crossover_tpu_torch.solvers.pdhg_mcf import pdhg_mcf_device
+
+    t0 = time.perf_counter()
+    mcf = goto_like_mcf(362, 362, extra_arc_factor=4, regular=True)
+    gen_s = time.perf_counter() - t0
+    kkt0 = mcf_kkt(mcf, np.zeros(mcf.n), np.zeros(mcf.m))
+    with sparse_route_only():
+        x1, y1, it1, _, _ = pdhg_mcf_device(mcf, tol=0.0, max_iters=250)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, y, iters, conv, rt = pdhg_mcf_device(mcf, tol=0.0,
+                                                max_iters=5000)
+        wall = time.perf_counter() - t0
+        counts = require_no_dense_pdhg(scx, "pdhg_mcf_device at GOTO-17")
+    kkt1 = mcf_kkt(mcf, x1, y1)
+    kkt = mcf_kkt(mcf, x, y)
+    rec = {"phase": "pdhg_mcf_goto17", "nodes": mcf.m, "arcs": mcf.n,
+           "generate_s": gen_s, "iterations": iters, "converged": conv,
+           "wall_s": wall, "ms_per_iteration": wall * 1e3 / iters,
+           "kkt_rel_start": kkt0, "kkt_rel_250": kkt1, "kkt_rel_5000": kkt,
+           "launches": counts,
+           "operators_halpern_1000": operator_ms(mcf, 1000)}
+    emit(rec)
+    require(iters == 5000, f"pdhg_mcf_device stopped at {iters}")
+    require(bool(np.isfinite(x).all() and np.isfinite(y).all())
+            and all(np.isfinite(kkt)), "pdhg_mcf_device output not finite")
+    require(kkt[0] < kkt0[0], f"primal residual {kkt[0]} not below its "
+            f"start {kkt0[0]}")
+    require(sum(kkt) < sum(kkt1), f"KKT score {sum(kkt)} not below the "
+            f"first chunk's {sum(kkt1)}")
+    return counts
 
 
 def phase_tnet_exact(scx, cert_objs):
@@ -629,6 +834,99 @@ def phase_tnet_exact(scx, cert_objs):
     require(rec["mega_cap100"]["repaired"] >= 1,
             "capped at 100 pivots, no instance was repaired")
     return {k: rec[k]["launches"] for k in ("host", "auto")}
+
+
+ENGINE_RUNS = (("parent", 64, 256, 256, 0), ("anc", 64, 256, 256, 0),
+               ("packed", 16, 784, 784, 1))
+MASK_BUDGET_S = 60.0     # the mask oracle runs at 64 x 256^2 within this
+
+
+def engine_exact(scx, engine, B, S, D, seed, cert_objs):
+    """batched_tnet_exact(engine=...) on the first B instances of bench.py's
+    batch (B0, S, D, seed): every instance optimal, at `cert_objs` (the
+    main phase's certified objectives) to 1e-9, K1 launched once and K2
+    never.  Returns its record."""
+    import torch
+
+    import bench
+
+    s, d, M = (a[:B] for a in bench.make_batch(len(cert_objs), S, D,
+                                               seed=seed))
+    stats = {}
+    torch.cuda.synchronize()
+    scx.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    X, obj, piv, opt = scx.batched_tnet_exact(
+        s, d, M, reg=REG, sinkhorn_iters=SINKHORN_ITERS, engine=engine,
+        stats=stats)
+    wall = time.perf_counter() - t0
+    counts = scx.kernel_launch_counts()
+    rel = float(np.max(np.abs(obj - cert_objs[:B]) / np.abs(cert_objs[:B])))
+    rec = {"engine": engine, "shape": [B, S, D], "seed": seed,
+           "n_optimal": int(opt.sum()), "wall_s": wall,
+           "median_pivots": float(np.median(piv)), "max_pivots": int(
+               piv.max()), "max_rel_to_certified": rel, "launches": counts,
+           **stats}
+    require(bool(opt.all()), f"{engine}: {int(opt.sum())}/{B} optimal")
+    require(X.shape == (B, S, D) and bool(np.isfinite(X).all()),
+            f"{engine}: output malformed")
+    require(rel <= EXACT_RTOL, f"{engine} off the certificates: {rel}")
+    require(counts["sinkhorn_fused"] == 1
+            and counts["transport_simplex_mega"] == 0,
+            f"{engine}: launches {counts}")
+    return rec
+
+
+def pivot_stage_ms(engines, B, S, D, seed, reps):
+    """The pivot stage alone, each engine against K2 ('mega') on the same
+    TNET warm start in this process: median synced ms and the pivots."""
+    import bench
+    from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
+    from smart_crossover_tpu_torch.parallel import batched as pb
+
+    s, d, M = to_cuda(*bench.make_batch(B, S, D, seed=seed))
+    X0, _ = pb._warm_start(s, d, M, REG, SINKHORN_ITERS)
+    Bm0 = boruvka_bipartite_mst((X0 > 1e-12).float())
+    out = {}
+    for e in ("mega",) + tuple(engines):
+        res, ms, all_ms = sync_time(lambda: pb.ENGINES[e](
+            X0, Bm0, M, max_pivots=MAX_PIVOTS), reps)
+        out[e] = {"ms": ms, "all_ms": all_ms,
+                  "max_pivots": int(res[2].max().item()),
+                  "all_optimal": bool(res[3].all())}
+    return out
+
+
+def phase_device_engines(scx, cobj, cobj7):
+    """The tensor pivot engines through batched_tnet_exact at bench.py's
+    shapes (parent and anc at 64 x 256^2 seed 0, packed at 16 x 784^2
+    seed 1; certified and repaired on the host), each engine's pivot stage
+    timed against K2's on the same warm start, and the mask oracle at 64 x
+    256^2, run again at a multiple of 8 instances that fits MASK_BUDGET_S
+    where the full batch does not."""
+    rec = {"phase": "device_engines", "tolerance": {"obj_rtol": EXACT_RTOL},
+           "runs": []}
+    for engine, B, S, D, seed in ENGINE_RUNS:
+        rec["runs"].append(engine_exact(scx, engine, B, S, D, seed,
+                                        cobj if S == 256 else cobj7))
+    rec["pivot_stage_64x256x256"] = pivot_stage_ms(("parent", "anc"), 64,
+                                                   256, 256, 0, 2)
+    rec["pivot_stage_16x784x784"] = pivot_stage_ms(("packed",), 16, 784,
+                                                   784, 1, 2)
+    # the oracle at the full batch; past its budget, again at the largest
+    # multiple of 8 that the time per instance says fits
+    full = engine_exact(scx, "mask", 64, 256, 256, 0, cobj)
+    rec["mask_cut"] = None
+    if full["device_s"] <= MASK_BUDGET_S:
+        rec["runs"].append(full)
+    else:
+        B = max(8, int(64 * MASK_BUDGET_S / full["device_s"]) // 8 * 8)
+        rec["mask_over_budget"] = full
+        rec["runs"].append(engine_exact(scx, "mask", B, 256, 256, 0, cobj))
+        rec["mask_cut"] = (f"mask ran at {B} x 256^2, not 64: 64 took "
+                           f"{full['device_s']:.1f} s")
+    emit(rec)
+    return rec
 
 
 # ---------------------------------------------------------------- dense LP
@@ -935,37 +1233,45 @@ def phase_lp_single(scx, m, n, seed):
     return counts, ref
 
 
-def phase_lp_fleet(scx, B, m, n, seed, reps):
+def phase_lp_fleet(scx, B, m, n, seed, reps, n_cross=None):
+    """batched_lp_crossover on the fleet lp_fleet(B, m, n, seed): K5's warm
+    start, then the host crossover, every vertex equal to HiGHS; the warm
+    start alone timed on all B.  With ``n_cross`` the crossover runs on the
+    first n_cross instances only (the host crossover dominates the phase,
+    and a host that is slow on the day doubles it)."""
     import torch
 
     A, b, c, l, u = lp_fleet(B, m, n, seed)
+    dev = to_cuda(A, b, c, l, u)
+    B_x = B if n_cross is None else n_cross
+    A, b, c, l, u = A[:B_x], b[:B_x], c[:B_x], l[:B_x], u[:B_x]
     torch.cuda.synchronize()
     scx.reset_kernel_launch_counts()
     # the f64 fleet goes in: float32 warm start on the card, f64 crossover
     out = scx.batched_lp_crossover(A, b, c, l, u, warm_engine="pdhg",
                                    pdhg_iters=4000, device=DEVICE)
     counts = scx.kernel_launch_counts()
-    dev = to_cuda(A, b, c, l, u)
     _, dev_ms, all_ms = sync_time(lambda: scx.pdhg_dense_batched(
         *dev, iters=4000), reps)
     t0 = time.perf_counter()
     ref = np.array([highs_obj(A[i], b[i], c[i], l[i], u[i])
-                    for i in range(B)])
+                    for i in range(B_x)])
     highs_s = time.perf_counter() - t0
     rel = np.abs(out["obj"] - ref) / np.maximum(1.0, np.abs(ref))
     total_s = out["warm_seconds"] + out["crossover_seconds"]
     emit({"phase": f"main_lp_fleet_{B}x{m}x{n}", "seed": seed,
           "pdhg_iters": 4000, "n_optimal": int(out["optimal"].sum()),
-          "batch": B, "max_rel_to_highs": float(rel.max()),
+          "batch": B, "crossed_over": B_x,
+          "max_rel_to_highs": float(rel.max()),
           "warm_seconds": out["warm_seconds"],
           "pdhg_device_ms_median": dev_ms, "pdhg_device_ms": all_ms,
           "host_crossover_s": out["crossover_seconds"],
           "median_pivots": float(np.median(out["pivots"])),
           "max_pivots": int(out["pivots"].max()),
-          "exact_vertices_per_s": B / total_s, "highs_s": highs_s,
+          "exact_vertices_per_s": B_x / total_s, "highs_s": highs_s,
           "launches": counts})
     require(bool(out["optimal"].all()),
-            f"only {int(out['optimal'].sum())}/{B} optimal")
+            f"only {int(out['optimal'].sum())}/{B_x} optimal")
     require(bool(rel.max() <= LP_OBJ_RTOL), f"fleet off HiGHS: {rel.max()}")
     require(bool(np.isfinite(out["x_bar"]).all()), "fleet warm start not finite")
     require(counts["pdhg_batched"] > 0, f"K5 not launched: {counts}")
@@ -1229,7 +1535,9 @@ def phase_cli(scx, m, n, seed):
 
 def phase_solve_ot(scx, cert_obj):
     """solve_ot on instance 0 of the 16 x 784^2 batch (seed 1); `cert_obj`
-    is main_16x784x784's certified objective of that instance."""
+    is main_16x784x784's certified objective of that instance: 'sinkhorn'
+    (K1 once), 'device_simplex' with the default engine 'parent' (K1
+    once, K2 never) and with 'mega' (K1 and K2 once each)."""
     import torch
 
     import bench
@@ -1240,43 +1548,40 @@ def phase_solve_ot(scx, cert_obj):
            "certified_obj": cert_obj,
            "tolerance": {"obj_rtol": EXACT_RTOL}}
     counts = {}
-    runs = (("sinkhorn", scx.SolverSettings()),
-            ("device_simplex",
+    runs = (("sinkhorn", "sinkhorn", scx.SolverSettings()),
+            ("device_simplex", "device_simplex", scx.SolverSettings()),
+            ("device_simplex_mega", "device_simplex",
              scx.SolverSettings(deviceSimplexEngine="mega")))
-    for method, settings in runs:
+    for label, method, settings in runs:
         torch.cuda.synchronize()
         scx.reset_kernel_launch_counts()
         t0 = time.perf_counter()
         out = scx.solve_ot(ot, method=method, settings=settings)
         wall = time.perf_counter() - t0
-        counts[method] = scx.kernel_launch_counts()
-        rec[method] = {"status": out.status, "obj": out.obj_val,
-                       "rel_to_certified": abs(out.obj_val - cert_obj)
-                       / abs(cert_obj), "wall_s": wall,
-                       "iter_count": out.iter_count,
-                       "launches": counts[method]}
+        counts[label] = scx.kernel_launch_counts()
+        rec[label] = {"status": out.status, "obj": out.obj_val,
+                      "engine": settings.deviceSimplexEngine,
+                      "rel_to_certified": abs(out.obj_val - cert_obj)
+                      / abs(cert_obj), "wall_s": wall,
+                      "iter_count": out.iter_count,
+                      "launches": counts[label]}
         require(out.x is not None and out.x.shape == (M.size,)
                 and bool(np.isfinite(out.x).all()),
-                f"solve_ot({method}) output malformed")
-    try:
-        scx.solve_ot(ot, method="device_simplex")
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
-    rec["default_engine_raises"] = raised
+                f"solve_ot({label}) output malformed")
     emit(rec)
-    sk, ds = counts["sinkhorn"], counts["device_simplex"]
+    sk = counts["sinkhorn"]
     require(rec["sinkhorn"]["status"] == "APPROXIMATE",
             f"solve_ot(sinkhorn): {rec['sinkhorn']['status']}")
     require(sk["sinkhorn_fused"] == 1, f"sinkhorn launched K1: {sk}")
-    require(rec["device_simplex"]["status"] == "OPTIMAL",
-            f"solve_ot(device_simplex): {rec['device_simplex']['status']}")
-    require(rec["device_simplex"]["rel_to_certified"] <= EXACT_RTOL,
-            "solve_ot(device_simplex) off the certified objective")
-    require(ds["sinkhorn_fused"] == 1 and ds["transport_simplex_mega"] == 1,
-            f"device_simplex launches: {ds}")
-    require(raised is not None and "1.6b" in raised,
-            f"the default engine did not raise naming 1.6b: {raised}")
+    for label, k2 in (("device_simplex", 0), ("device_simplex_mega", 1)):
+        ds = counts[label]
+        require(rec[label]["status"] == "OPTIMAL",
+                f"solve_ot({label}): {rec[label]['status']}")
+        require(rec[label]["rel_to_certified"] <= EXACT_RTOL,
+                f"solve_ot({label}) off the certified objective")
+        require(ds["sinkhorn_fused"] == 1
+                and ds["transport_simplex_mega"] == k2,
+                f"{label} launches: {ds}")
     return counts
 
 
@@ -1301,20 +1606,29 @@ def main() -> int:
         k["launches"] = counts[k["name"]]
         k["launches_784"] = counts7[k["name"]]
     nc_counts, k1_b1_ms, k1_b1_plain = phase_network_crossover(scx, cobj7[0])
-    phase_goto(scx)
+    goto_fo, goto_warm = phase_goto(scx)
+    goto17 = phase_goto17(scx)
     exact = phase_tnet_exact(scx, cobj)
+    engines = phase_device_engines(scx, cobj, cobj7)
     kernels[0].update(launches_network_crossover=nc_counts["sinkhorn_fused"],
                       ms_784_b1=k1_b1_ms, plain_ms_784_b1=k1_b1_plain,
                       bound_ms_784_b1=bound(*sinkhorn_work(1, 784, 784))[0])
     for k in kernels:
         k["launches_tnet_exact_host"] = exact["host"][k["name"]]
         k["launches_tnet_exact_auto"] = exact["auto"][k["name"]]
+        k["launches_device_engines"] = {
+            r["engine"] + "_" + "x".join(map(str, r["shape"])):
+            r["launches"][k["name"]] for r in engines["runs"]}
 
     kernels += [phase_k3(512, 2048, seed=3), phase_k4(512, 2048, seed=3),
                 phase_k5()]
     single, single_ref = phase_lp_single(scx, 512, 2048, seed=7)
     fleet, _ = phase_lp_fleet(scx, 32, 64, 256, seed=5, reps=5)
-    fleet_big, big_ms = phase_lp_fleet(scx, 64, 256, 512, seed=6, reps=3)
+    # the 64 x 256 x 512 fleet's host crossover took 188-344 s by call:
+    # its first 32 instances are crossed over (K5 runs at 32 there and is
+    # timed at all 64)
+    fleet_big, big_ms = phase_lp_fleet(scx, 64, 256, 512, seed=6, reps=3,
+                                       n_cross=32)
     kernels[2]["launches"] = single["adaptive"]["pdhg_chunk"]
     kernels[3]["launches"] = single["halpern"]["halpern_chunk"]
     kernels[4]["launches"] = fleet["pdhg_batched"]
@@ -1331,9 +1645,17 @@ def main() -> int:
     kernels[2]["launches_lp_front_door"] = front["pdhg_chunk"]
     for k in kernels[:2]:
         k["launches_solve_ot_device_simplex"] = \
+            ot_counts["device_simplex_mega"][k["name"]]
+        k["launches_solve_ot_default_engine"] = \
             ot_counts["device_simplex"][k["name"]]
     kernels[0]["launches_solve_ot_sinkhorn"] = \
         ot_counts["sinkhorn"]["sinkhorn_fused"]
+    # the sparse first-order route launches none of the dense PDHG kernels
+    for k in kernels[2:]:
+        k["launches_sparse_first_order"] = {
+            "solve_mcf_goto128": goto_fo[k["name"]],
+            "pdhg_mcf_goto128": goto_warm[k["name"]],
+            "pdhg_mcf_goto17": goto17[k["name"]]}
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.")

@@ -2,9 +2,8 @@
 
 Port of ``smart_crossover_tpu/__main__.py``.  ``solve`` and ``crossover``
 work as in the JAX CLI, over the port's facade; ``--device`` picks where
-the device routes run (the CUDA card by default, ``cpu`` for their plain
-versions).  Not ported yet: ``bench`` (the port has no benchmark, ROADMAP
-1.0e) and the MCF crossover's first-order warm start (ROADMAP 1.11).
+the device routes run (the CUDA card by default, ``cpu`` for the CPU).
+Not ported yet: ``bench`` (the port has no benchmark, ROADMAP 1.0e).
 """
 from __future__ import annotations
 
@@ -101,7 +100,6 @@ def main(argv=None) -> int:
         else:
             from smart_crossover_tpu_torch.solvers.solving import solve_mcf
 
-            # raises until the sparse PDHG is ported (ROADMAP 1.11)
             fo = solve_mcf(inst, method="first_order",
                            settings=SolverSettings(crossover="off",
                                                    firstOrderMaxIters=20_000),

@@ -41,8 +41,10 @@ from smart_crossover_tpu_torch.config import SMEM_PER_BLOCK, SMS, split_rows
 from smart_crossover_tpu_torch.ops.transport_simplex_anc import (
     _tree_cells,
     build_ancestor_matrix,
+    rebuild_plan,
 )
 from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
+    _price,
     build_parent_from_mask,
 )
 
@@ -150,13 +152,6 @@ def _refresh_pot(N, dep, w):
     par = torch.where(dep % 2 == 0, 1.0, -1.0).to(w.dtype)
     acc = torch.where(N, (par * w)[:, None, :], 0.0).sum(2)
     return acc * par
-
-
-def _price(M, mask, pot):
-    B, S, D = M.shape
-    delta = torch.where(mask, 0.0, M - pot[:, :S, None] - pot[:, None, S:])
-    dmin, flat = delta.reshape(B, -1).min(1)
-    return dmin, flat // D, flat % D
 
 
 def _pivot(st, go, dmin, ei, ej):
@@ -425,16 +420,6 @@ def transport_simplex_mega(state, tol: float = 1e-7, max_pivots: int = 5000,
         raise ValueError(
             f"transport_simplex_mega: no kernel for {state['M'].device}")
     return transport_simplex_mega_plain(state, tol, max_pivots, refresh)
-
-
-def rebuild_plan(parent, Xv, S: int, D: int):
-    """Dense plans (B, S, D) from tree flows keyed by child node."""
-    B = parent.shape[0]
-    ci, cj, notroot = _tree_cells(parent.long(), S, D)
-    idx = torch.where(notroot, ci * D + cj, S * D)
-    X = torch.zeros(B, S * D + 1, dtype=Xv.dtype, device=Xv.device)
-    X = X.scatter(1, idx, torch.where(notroot, Xv, 0.0))
-    return X[:, :S * D].reshape(B, S, D)
 
 
 def batched_transport_simplex_mega(X, Bm, M, tol: float = 1e-7,

@@ -11,13 +11,17 @@ import torch
 # push steps run between two host checks of "any instance still active";
 # a finished instance's later steps are no-ops (theta = 0)
 _PUSH_CHECK_EVERY = 16
+# leaf-elimination rounds between two host checks of "any edge left"; a
+# round with no edge left changes nothing
+_SOLVE_CHECK_EVERY = 8
 
 
 def bipartite_tree_solve(mask, s, d, max_rounds: int | None = None):
     """Flows X on each spanning-tree ``mask`` (B, S, D) with row sums ``s``
     (B, S) and column sums ``d`` (B, D), by leaf elimination: each round
     assigns every supplier leaf, then every demander leaf, its residual
-    balance.  Flows may be negative."""
+    balance.  Flows may be negative.  The host reads "any edge left" once
+    per ``_SOLVE_CHECK_EVERY`` rounds."""
     B, S, D = mask.shape
     if max_rounds is None:
         max_rounds = S + D + 2
@@ -27,8 +31,8 @@ def bipartite_tree_solve(mask, s, d, max_rounds: int | None = None):
     rs = s.to(dtype).clone()
     rd = d.to(dtype).clone()
     X = torch.zeros(B, S, D, dtype=dtype, device=mask.device)
-    for _ in range(max_rounds):
-        if not bool(active.any()):
+    for r in range(max_rounds):
+        if r % _SOLVE_CHECK_EVERY == 0 and not bool(active.any()):
             break
         leaf_s = active.sum(2) == 1
         oh_j = (active & leaf_s[:, :, None]).to(dtype)

@@ -5,10 +5,11 @@ Port of ``smart_crossover_tpu/parallel/batched.py`` (``tnet_single``,
 Every stage takes the instance batch as a leading axis.  The Sinkhorn
 stage always runs the fused route: per-instance eps = reg * max(M_b) is
 folded into the cost and the fused kernel runs at reg = 1 (the plan is
-invariant under (M / eps, eps = 1)).  The pivot stage runs the in-kernel
-transportation simplex; the host route cleans up with the native network
-simplex.  The other device engines of the JAX package and its sharded
-pipelines are not ported yet.
+invariant under (M / eps, eps = 1)).  The pivot stage runs one of the
+device transportation-simplex engines: the in-kernel pivot loop ('mega',
+K2) or the batched tensor engines 'parent', 'anc', 'packed' and 'mask'
+(``ENGINES``); the host route cleans up with the native network simplex.
+The JAX package's sharded pipelines are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,14 +31,40 @@ from smart_crossover_tpu_torch.network_methods.tree_bi import (
 from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
 from smart_crossover_tpu_torch.ops.ranking import ot_flow_indicators
 from smart_crossover_tpu_torch.ops.sinkhorn_fused import sinkhorn_plan_fused
+from smart_crossover_tpu_torch.ops.transport_simplex import (
+    batched_transport_simplex,
+)
+from smart_crossover_tpu_torch.ops.transport_simplex_anc import (
+    batched_transport_simplex_anc,
+)
 from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
     batched_transport_simplex_mega,
     cluster_plan,
 )
+from smart_crossover_tpu_torch.ops.transport_simplex_packed import (
+    batched_transport_simplex_packed,
+)
+from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
+    batched_transport_simplex_parent,
+)
 from smart_crossover_tpu_torch.solvers.network_simplex import network_simplex
 from smart_crossover_tpu_torch.solvers.sinkhorn import round_to_feasible
 
-_UNPORTED_ENGINES = ("device", "parent", "anc", "packed", "mask")
+# the device pivot engines: (X0, Bm0, M, max_pivots=) -> (X, Bm, pivots,
+# optimal); 'device' names the JAX package's default, 'parent'
+ENGINES = {"mega": batched_transport_simplex_mega,
+           "parent": batched_transport_simplex_parent,
+           "anc": batched_transport_simplex_anc,
+           "packed": batched_transport_simplex_packed,
+           "mask": batched_transport_simplex}
+
+
+def _engine(engine: str) -> str:
+    name = "parent" if engine == "device" else engine
+    if name not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}: the device simplex "
+                         f"engines are {sorted(ENGINES)} and 'device'")
+    return name
 
 
 def _on_device(s, d, M, device):
@@ -96,26 +123,27 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
 
     Args:
         s, d, M: (B, S), (B, D), (B, S, D) numpy arrays or tensors.
+        engine: the pivot engine (``ENGINES``): 'mega' (default), the
+            whole pivot loop in one kernel launch; 'parent' (the JAX
+            package's default; 'device' names it too), 'anc', 'packed'
+            and 'mask' (the oracle), batched tensor code that pivots the
+            batch in lockstep.
         device: where to run (default: M's device if M is a tensor, else
             the CUDA card; without one that default raises).  On CUDA the
-            stages run in float32 through the hand-written kernels; with
-            ``device="cpu"`` in the input's dtype through their plain
-            versions.
+            stages run in float32 (the Sinkhorn and 'mega' through the
+            hand-written kernels); with ``device="cpu"`` in the input's
+            dtype (the kernels through their plain versions).
 
     Returns (X, obj, push_iters, pivots, optimal, basis_mask), batched
     tensors on ``device``; ``network_methods.certify`` recomputes the exact
     f64 vertex from basis_mask.
     """
-    if engine != "mega":
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP 1.6b: the parent, "
-            "anc, packed and mask engines); use engine='mega'")
+    pivot = ENGINES[_engine(engine)]
     s, d, M = _on_device(s, d, M, device)
     X0, push = _warm_start(s, d, M, reg, sinkhorn_iters)
     support = (X0 > 1e-12).to(M.dtype)
     Bm0 = boruvka_bipartite_mst(support)
-    X, Bm, pivots, optimal = batched_transport_simplex_mega(
-        X0, Bm0, M, max_pivots=max_pivots)
+    X, Bm, pivots, optimal = pivot(X0, Bm0, M, max_pivots=max_pivots)
     obj = (X.to(M.dtype) * M).sum((1, 2))
     return X, obj, push, pivots, optimal, Bm
 
@@ -146,8 +174,9 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
     up on the host from the support X > 0 of its tree vertex, over
     min(cpu_count, 8) threads (the core releases the interpreter lock).
 
-    ``engine='mega'``: ``batched_tnet_exact_device`` (the Sinkhorn and
-    pivot-loop kernels); every returned basis is certified in f64 on the
+    ``engine='mega'``, or a tensor engine ('parent', 'device' = 'parent',
+    'anc', 'packed', 'mask'): ``batched_tnet_exact_device`` with that
+    pivot engine; every returned basis is certified in f64 on the
     host (``certify_ot_basis_batch``), and each instance that fails or hit
     the pivot cap (``max_pivots``, default max(5000, 8 (S + D))) is
     repaired by the native network simplex warm-started from its device
@@ -162,19 +191,15 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
     device precision.  ``device`` is as in ``batched_tnet``.  ``stats``, if
     given, gets the route taken (``engine``), the device and host seconds
     (``device_s``, ``host_s``) and the number of instances repaired
-    (``repaired``, 'mega' only).
+    (``repaired``, the device engines only).
 
     Returns (X, obj, pivots, optimal) as numpy arrays.
     """
     if mesh is not None:
         raise NotImplementedError("mesh= is not ported yet (ROADMAP 1.15: "
                                   "multi-device pipelines)")
-    if engine in _UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet (ROADMAP 1.6b: the parent, "
-            "anc, packed and mask engines); use 'auto', 'mega' or 'host'")
-    if engine not in ("auto", "mega", "host"):
-        raise ValueError(f"unknown engine {engine!r}")
+    if engine not in ("auto", "host"):
+        engine = _engine(engine)
     B, S, D = M.shape
     if engine == "auto":
         try:
@@ -187,14 +212,14 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
     s64, M64 = _host64(s), _host64(M)
     d64 = _host64(d)
     d64 = d64 * (s64.sum(1) / d64.sum(1))[:, None]  # f32 mass drift
-    if engine == "mega":
+    if engine != "host":
         if max_pivots is None:
             # pivot counts from warm starts grow ~linearly in V
             max_pivots = max(5000, 8 * (S + D))
         t0 = time.perf_counter()
         *_, piv, opt, Bm = batched_tnet_exact_device(
             s, d, M, reg=reg, sinkhorn_iters=sinkhorn_iters,
-            max_pivots=max_pivots, device=device)
+            max_pivots=max_pivots, engine=engine, device=device)
         piv_n = piv.cpu().numpy().astype(np.int64)
         opt_n = opt.cpu().numpy().astype(bool)
         Bm_n = Bm.cpu().numpy()

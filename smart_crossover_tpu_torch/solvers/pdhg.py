@@ -1,21 +1,24 @@
-"""Restarted PDHG (PDLP-style) first-order LP solver on a dense A.
+"""Restarted PDHG (PDLP-style) first-order LP solver.
 
 Port of ``smart_crossover_tpu/solvers/pdhg.py``: ``PDHGResult``,
-``estimate_opnorm``, ``_ruiz_equilibrate`` (dense branch, host numpy),
+``estimate_opnorm``, ``_ruiz_equilibrate`` (host numpy, dense and sparse),
 ``_pdhg_core`` (adaptive steps + averaging restarts), ``_pdhg_core_halpern``
-(restarted reflected Halpern), ``_active_set_polish`` (host scipy) and
-``pdhg_solve`` for a dense A.  Solves
+(restarted reflected Halpern), ``_pdhg_core_scipy`` (the host scipy mirror
+of the adaptive core), ``_active_set_polish`` (host scipy), ``pdhg_solve``
+and ``pdhg_general_lp``.  Solves
 
     min c'x  s.t.  A_eq x = b_eq,  A_le x <= b_le,  l <= x <= u.
 
 The JAX cores are ``lax.while_loop``s under ``jit``; here the outer loop is
-Python: one chunk of ``check_every`` iterations per step, run by the
-kernel wrappers of ``ops/pdhg_chunk.py`` (the CUDA kernels on a CUDA
-tensor, their plain versions on the CPU), then the restart test, the KKT
-scores and the primal-weight update as tensor ops, and one host read per
-chunk for the loop condition.  ``pdhg_general_lp`` runs a ``GeneralLP``
-through the dense route.  Not ported yet: the BCOO and host-scipy routes
-for a sparse A (ROADMAP 1.11).
+Python: one chunk of ``check_every`` iterations per step, then the restart
+test, the KKT scores and the primal-weight update as tensor ops, and one
+host read per chunk for the loop condition.  On a dense A the chunk is a
+kernel wrapper of ``ops/pdhg_chunk.py`` (the CUDA kernel on a CUDA tensor,
+its plain version on the CPU).  On a sparse A (a scipy sparse matrix, the
+JAX package's BCOO) the cores take an operator (``ops/pdhg_sparse.py``: A
+and A' as CSR tensors) and its tensor-code chunks, except where the JAX
+package runs its host mirror: the adaptive mode on the CPU runs
+``_pdhg_core_scipy``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,11 @@ import torch
 
 from smart_crossover_tpu_torch.config import device_float, resolve_device
 from smart_crossover_tpu_torch.ops.pdhg_chunk import halpern_chunk, pdhg_chunk
+from smart_crossover_tpu_torch.ops.pdhg_sparse import (
+    CSROperator,
+    sparse_halpern_chunk,
+    sparse_pdhg_chunk,
+)
 
 
 @dataclass
@@ -44,9 +52,10 @@ class PDHGResult:
     gap: float
 
 
-def estimate_opnorm(A: torch.Tensor, iters: int = 50, seed: int = 0):
+def estimate_opnorm(A, iters: int = 50, seed: int = 0):
     """Power iteration for ||A||_2 from a seeded Gaussian start (a
-    ``torch.Generator`` on the CPU: other numbers than ``jax.random``)."""
+    ``torch.Generator`` on the CPU: other numbers than ``jax.random``); A
+    is a dense tensor or an ``ops/pdhg_sparse.py`` operator."""
     gen = torch.Generator().manual_seed(seed)
     v = torch.randn(A.shape[1], generator=gen, dtype=torch.float64)
     v = v.to(device=A.device, dtype=A.dtype)
@@ -108,7 +117,9 @@ def _pdhg_core(A, b, c, l, u, is_eq, opnorm, x0, y0, max_iters: int,
                check_every: int, restart_period: int, tol: float):
     """Core loop with PDLP-style adaptive restarts and primal weight (see
     the JAX ``_pdhg_core``).  The chunk gets the GLOBAL iteration count as
-    its schedule index.  Returns (x, y, iters, converged)."""
+    its schedule index.  A is a dense tensor (the chunk kernel) or a
+    sparse operator (``sparse_pdhg_chunk``).  Returns (x, y, iters,
+    converged)."""
     zero = torch.zeros((), dtype=A.dtype, device=A.device)
     inf = torch.full((), float("inf"), dtype=A.dtype, device=A.device)
     bscale = 1.0 + torch.linalg.norm(b)
@@ -126,9 +137,14 @@ def _pdhg_core(A, b, c, l, u, is_eq, opnorm, x0, y0, max_iters: int,
     eta = 0.9 / opnorm
     done = torch.zeros((), dtype=torch.bool, device=A.device)
     while it < max_iters:
-        x, y, Ax, xs, ys, wsum, eta = pdhg_chunk(
-            A, b, c, l, u, eqf, x, y, Ax, xs, ys, wsum, eta, omega, it,
-            opnorm, chunk=check_every)
+        if isinstance(A, torch.Tensor):
+            x, y, Ax, xs, ys, wsum, eta = pdhg_chunk(
+                A, b, c, l, u, eqf, x, y, Ax, xs, ys, wsum, eta, omega, it,
+                opnorm, chunk=check_every)
+        else:
+            x, y, Ax, xs, ys, wsum, eta = sparse_pdhg_chunk(
+                A, b, c, l, u, is_eq, x, y, Ax, xs, ys, wsum, eta, omega,
+                it, opnorm, check_every)
         cnt = cnt + check_every
         pos = wsum > 0
         safe_w = torch.where(pos, wsum, 1.0)
@@ -182,7 +198,8 @@ def _pdhg_core_halpern(A, b, c, l, u, is_eq, opnorm, x0, y0,
     """Restarted reflected-Halpern PDHG (r2HPDHG; see the JAX
     ``_pdhg_core_halpern``).  The chunk gets the iterations since the last
     restart (cnt) as its Halpern index; the anchors move only at a
-    restart.  Returns (x, y, iters, converged)."""
+    restart.  A is a dense tensor (the chunk kernel) or a sparse operator
+    (``sparse_halpern_chunk``).  Returns (x, y, iters, converged)."""
     inf = torch.full((), float("inf"), dtype=A.dtype, device=A.device)
     bscale = 1.0 + torch.linalg.norm(b)
     cscale = 1.0 + torch.linalg.norm(c)
@@ -199,9 +216,14 @@ def _pdhg_core_halpern(A, b, c, l, u, is_eq, opnorm, x0, y0,
     omega = torch.ones((), dtype=A.dtype, device=A.device)
     done = torch.zeros((), dtype=torch.bool, device=A.device)
     while it < max_iters:
-        x, y, Ax, _ = halpern_chunk(A, b, c, l, u, eqf, x, y, Ax, xa, ya, Axa,
-                                    omega, cnt.to(A.dtype), step,
-                                    chunk=check_every)
+        if isinstance(A, torch.Tensor):
+            x, y, Ax, _ = halpern_chunk(A, b, c, l, u, eqf, x, y, Ax, xa, ya,
+                                        Axa, omega, cnt.to(A.dtype), step,
+                                        chunk=check_every)
+        else:
+            x, y, Ax, _ = sparse_halpern_chunk(
+                A, b, c, l, u, is_eq, x, y, Ax, xa, ya, Axa, omega,
+                cnt.to(A.dtype), step, check_every)
         cnt = cnt + check_every
         # the restart/output candidate is T(z), the PDHG image of the
         # Halpern iterate
@@ -246,9 +268,146 @@ def _pdhg_core_halpern(A, b, c, l, u, is_eq, opnorm, x0, y0,
     return x, y, it, bool(done)
 
 
+def _pdhg_core_scipy(A_csr, b, c, l, u, is_eq, opnorm, x0, y0,
+                     max_iters: int, check_every: int,
+                     restart_period: int, tol: float):
+    """Host scipy-sparse mirror of _pdhg_core (adaptive mode), which the
+    JAX package runs for a sparse A on its CPU backend: same math and
+    restart logic as the core; numpy f64 throughout.  Returns (x, y,
+    iters, converged) as numpy arrays and Python scalars."""
+    A = ssp.csr_matrix(A_csr)
+    AT = A.T.tocsr()
+    b = np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    l = np.asarray(l, np.float64)
+    u = np.asarray(u, np.float64)
+    is_eq = np.asarray(is_eq, bool)
+    opnorm = float(opnorm)
+    bscale = 1.0 + np.linalg.norm(b)
+    cscale = 1.0 + np.linalg.norm(c)
+    fin_l = np.isfinite(l)
+    fin_u = np.isfinite(u)
+    ly = np.where(fin_l, l, 0.0)
+    uy = np.where(fin_u, u, 0.0)
+
+    def proj_x(x):
+        return np.clip(x, l, u)
+
+    def proj_y(y):
+        return np.where(is_eq, y, np.minimum(y, 0.0))
+
+    def kkt_score(x, y):
+        r = A @ x - b
+        pres = np.linalg.norm(np.where(is_eq, r, np.maximum(r, 0.0))) \
+            / bscale
+        rc = c - AT @ y
+        lo_ok = fin_l & (x <= l + 1e-12)
+        up_ok = fin_u & (x >= u - 1e-12)
+        dviol = np.where(lo_ok, np.minimum(rc, 0.0),
+                         np.where(up_ok, np.maximum(rc, 0.0), rc))
+        dres = np.linalg.norm(dviol) / cscale
+        dual_obj = b @ y + ly @ (np.maximum(rc, 0.0) * fin_l) \
+            + uy @ (np.minimum(rc, 0.0) * fin_u)
+        pobj = c @ x
+        gap = abs(pobj - dual_obj) / (1.0 + abs(pobj) + abs(dual_obj))
+        return pres, dres, gap
+
+    x = proj_x(np.asarray(x0, np.float64).copy())
+    y = np.asarray(y0, np.float64).copy()
+    Ax = A @ x
+    xs = np.zeros_like(x)
+    ys = np.zeros_like(y)
+    wsum = 0.0
+    eta = 0.9 / opnorm
+    omega = 1.0
+    cnt = 0
+    it = 0
+    x_lr, y_lr = x.copy(), y.copy()
+    score_lr = score_prev = np.inf
+    best_x, best_y, best_score = x.copy(), y.copy(), np.inf
+    done = False
+    while it < max_iters and not done:
+        for _ in range(check_every):
+            tau = eta / omega
+            sigma = eta * omega
+            x_c = proj_x(x - tau * (c - AT @ y))
+            Ax_c = A @ x_c
+            y_c = proj_y(y + sigma * (b - (2.0 * Ax_c - Ax)))
+            dx = x_c - x
+            dy = y_c - y
+            curv = abs(dy @ (Ax_c - Ax))
+            nz = omega * (dx @ dx) + (dy @ dy) / omega
+            eta_bar = nz / (2.0 * curv) if curv > 0 else 1e10 / opnorm
+            k1 = it + 2.0
+            if eta <= eta_bar:
+                x, y, Ax = x_c, y_c, Ax_c
+                xs += eta * x
+                ys += eta * y
+                wsum += eta
+            eta = min((1.0 - k1 ** -0.3) * eta_bar,
+                      (1.0 + k1 ** -0.6) * eta)
+            eta = min(max(eta, 1e-10 / opnorm), 1e10 / opnorm)
+            it += 1
+        cnt += check_every
+        x_avg = xs / wsum if wsum > 0 else x
+        y_avg = ys / wsum if wsum > 0 else y
+        pres_c, dres_c, gap_c = kkt_score(x, y)
+        pres_a, dres_a, gap_a = kkt_score(x_avg, y_avg)
+        if pres_a + dres_a + gap_a < pres_c + dres_c + gap_c:
+            cand_x, cand_y = x_avg, y_avg
+            pres, dres, gap = pres_a, dres_a, gap_a
+        else:
+            cand_x, cand_y = x, y
+            pres, dres, gap = pres_c, dres_c, gap_c
+        score = pres + dres + gap
+        if score < best_score:
+            best_x, best_y, best_score = cand_x.copy(), cand_y.copy(), score
+        done = pres < tol and dres < tol and gap < tol
+        sufficient = score <= 0.2 * score_lr
+        necessary = score <= 0.8 * score_lr and score > score_prev
+        artificial = cnt >= max(restart_period, int(0.36 * it))
+        if sufficient or necessary or artificial or done:
+            dx_move = np.linalg.norm(cand_x - x_lr)
+            dy_move = np.linalg.norm(cand_y - y_lr)
+            if dx_move > 1e-12 and dy_move > 1e-12:
+                omega = float(np.exp(0.5 * np.log(dy_move / dx_move)
+                                     + 0.5 * np.log(omega)))
+                omega = min(max(omega, 1e-4), 1e4)
+            x, y = cand_x.copy(), cand_y.copy()
+            Ax = A @ x
+            xs[:] = 0.0
+            ys[:] = 0.0
+            wsum = 0.0
+            cnt = 0
+            x_lr, y_lr = x.copy(), y.copy()
+            score_lr = score
+        score_prev = score
+    if not done:
+        x, y = best_x, best_y
+    return x, y, it, done
+
+
 def _ruiz_equilibrate(A, iters: int = 10):
-    """Ruiz diagonal equilibration of a dense A (host f64): returns (R, C)
-    with R A C well scaled."""
+    """Ruiz diagonal equilibration (host f64): returns (R, C) with R A C
+    well scaled.  A is a dense array or a scipy sparse matrix (the JAX
+    package's BCOO branch: the same passes over the nonzeros)."""
+    if ssp.issparse(A):
+        coo = A.tocoo()
+        rows, cols = coo.row, coo.col
+        data = np.asarray(coo.data, dtype=np.float64)
+        m, n = A.shape
+        R = np.ones(m)
+        C = np.ones(n)
+        for _ in range(iters):
+            v = np.abs(data) * R[rows] * C[cols]
+            rmax = np.zeros(m)
+            np.maximum.at(rmax, rows, v)
+            R /= np.where(rmax > 0, np.sqrt(rmax), 1.0)
+            v = np.abs(data) * R[rows] * C[cols]
+            cmax = np.zeros(n)
+            np.maximum.at(cmax, cols, v)
+            C /= np.where(cmax > 0, np.sqrt(cmax), 1.0)
+        return R, C
     An = np.abs(np.asarray(A, dtype=np.float64))
     m, n = An.shape
     R = np.ones(m)
@@ -387,6 +546,31 @@ def _host(v):
     return None if v is None else np.asarray(v)
 
 
+def _host_sparse(A):
+    """A sparse A (scipy, or a sparse tensor) as a scipy COO matrix, or
+    None for a dense A."""
+    if ssp.issparse(A):
+        return A.tocoo()
+    if isinstance(A, torch.Tensor) and A.layout != torch.strided:
+        A = A.detach().cpu().to_sparse_coo().coalesce()
+        rows, cols = A.indices().numpy()
+        return ssp.coo_matrix((A.values().numpy(), (rows, cols)),
+                              shape=tuple(A.shape))
+    return None
+
+
+def _scipy_opnorm(A_sp, n: int) -> float:
+    """The JAX package's host power iteration for ||A||_2 (50 rounds from
+    a numpy Gaussian start, seed 0), run where the host core runs."""
+    v = np.random.default_rng(0).standard_normal(n)
+    v /= np.linalg.norm(v)
+    AT_sp = A_sp.T.tocsr()
+    for _ in range(50):
+        w = AT_sp @ (A_sp @ v)
+        v = w / (np.linalg.norm(w) + 1e-30)
+    return float(np.sqrt(np.linalg.norm(AT_sp @ (A_sp @ v))))
+
+
 def pdhg_solve(A, b, c, l, u, sense=None,
                tol: float = 1e-6,
                max_iters: int = 100_000,
@@ -398,30 +582,31 @@ def pdhg_solve(A, b, c, l, u, sense=None,
     """Solve an LP with restarted PDHG (Ruiz-equilibrated by default).
 
     Args:
-        A: (m, n) dense numpy array or tensor.  A sparse A raises
-            ``NotImplementedError`` (ROADMAP 1.11).
+        A: (m, n) dense numpy array or tensor, or a sparse matrix (scipy
+            sparse, or a sparse tensor; the JAX package's BCOO).
         sense: length-m array of '='/'<' (None = all equality).
         mode: 'adaptive' (PDLP adaptive step sizes + averaging restarts)
             or 'halpern' (restarted reflected-Halpern acceleration).
         device: where the iterations run (default: A's device if A is a
             tensor, else the CUDA card; without one that default raises).
-            On CUDA every chunk of 64 iterations is one launch of the
-            hand-written kernel, in float32; with ``device="cpu"`` the
-            kernel's plain version runs in A's dtype.
+            On CUDA the iterations run in float32: on a dense A every
+            chunk of 64 iterations is one launch of the hand-written
+            kernel, on a sparse A a chunk of sparse products and vector
+            updates.  With ``device="cpu"`` they run in A's dtype: the
+            dense kernel's plain version, or for a sparse A the host
+            scipy core (adaptive, as the JAX package on its CPU backend)
+            or the sparse tensor chunks (halpern).
 
     Returns a ``PDHGResult`` with x, y unscaled to the original problem;
     the residuals are measured on the host in f64 in the scaled space.
     """
     t0 = time.perf_counter()
-    if ssp.issparse(A) or (isinstance(A, torch.Tensor)
-                           and A.layout != torch.strided):
-        raise NotImplementedError(
-            "pdhg_solve: a sparse A is not ported yet (ROADMAP 1.11: the "
-            "BCOO and host-scipy routes); pass a dense A")
     if mode not in ("adaptive", "halpern"):
         raise ValueError(f"pdhg_solve: unknown mode {mode!r}")
     dev = resolve_device(device, A)
-    A_in, b, c, l, u, x0, y0 = (_host(v) for v in (A, b, c, l, u, x0, y0))
+    A_coo = _host_sparse(A)
+    A_in = A_coo if A_coo is not None else _host(A)
+    b, c, l, u, x0, y0 = (_host(v) for v in (b, c, l, u, x0, y0))
     dtype = device_float(dev, torch.float32 if A_in.dtype == np.float32
                          else torch.float64)
     m, n = A_in.shape
@@ -431,7 +616,12 @@ def pdhg_solve(A, b, c, l, u, sense=None,
     A_np = A_in
     if rescale:
         R, C = _ruiz_equilibrate(A_in)
-        A_np = A_in * R[:, None] * C[None, :]
+        if A_coo is not None:
+            A_np = ssp.coo_matrix(
+                (A_coo.data * R[A_coo.row] * C[A_coo.col],
+                 (A_coo.row, A_coo.col)), shape=(m, n))
+        else:
+            A_np = A_in * R[:, None] * C[None, :]
         b = np.asarray(b, dtype=np.float64) * R
         c = np.asarray(c, dtype=np.float64) * C
         with np.errstate(invalid="ignore"):
@@ -445,32 +635,51 @@ def pdhg_solve(A, b, c, l, u, sense=None,
     def dev_t(v):
         return torch.as_tensor(v).to(device=dev, dtype=dtype).contiguous()
 
-    At = dev_t(A_np)
     b, c, l, u = dev_t(b), dev_t(c), dev_t(l), dev_t(u)
     if sense is None:
         is_eq = torch.ones(m, dtype=torch.bool, device=dev)
     else:
         is_eq = torch.as_tensor(np.asarray(sense) == "=", device=dev)
-    opnorm = estimate_opnorm(At)
     x0 = torch.clamp(torch.zeros(n, dtype=dtype, device=dev), l, u) \
         if x0 is None else dev_t(x0)
     y0 = torch.zeros(m, dtype=dtype, device=dev) if y0 is None \
         else dev_t(y0)
-
     check_every = min(64, restart_period)
-    core = _pdhg_core_halpern if mode == "halpern" else _pdhg_core
-    x, y, iters, done = core(At, b, c, l, u, is_eq, opnorm, x0, y0,
-                             max_iters=max_iters, check_every=check_every,
-                             restart_period=restart_period, tol=tol)
-    x = x.double().cpu().numpy()
-    y = y.double().cpu().numpy()
+    core_kw = dict(max_iters=max_iters, check_every=check_every,
+                   restart_period=restart_period, tol=tol)
+
+    if A_coo is not None:
+        # the scaled nonzeros in the device dtype: what the device holds
+        # and what the host residuals below are measured on
+        data = torch.as_tensor(A_np.data).to(dtype).double().numpy()
+        A_host = ssp.csr_matrix((data, (A_np.row, A_np.col)), shape=(m, n))
+        h64 = [v.double().cpu().numpy() for v in (b, c, l, u, x0, y0)]
+        if mode == "adaptive" and dev.type == "cpu":
+            # the JAX package's route for a sparse A on its CPU backend
+            x, y, iters, done = _pdhg_core_scipy(
+                A_host, *h64[:4], is_eq.cpu().numpy(),
+                _scipy_opnorm(A_host, n), *h64[4:], **core_kw)
+        else:
+            op = CSROperator(A_np.row, A_np.col, data, (m, n), dtype, dev)
+            core = _pdhg_core_halpern if mode == "halpern" else _pdhg_core
+            x, y, iters, done = core(op, b, c, l, u, is_eq,
+                                     estimate_opnorm(op), x0, y0, **core_kw)
+            x = x.double().cpu().numpy()
+            y = y.double().cpu().numpy()
+    else:
+        At = dev_t(A_np)
+        core = _pdhg_core_halpern if mode == "halpern" else _pdhg_core
+        x, y, iters, done = core(At, b, c, l, u, is_eq, estimate_opnorm(At),
+                                 x0, y0, **core_kw)
+        x = x.double().cpu().numpy()
+        y = y.double().cpu().numpy()
+        A_host = ssp.csr_matrix(At.double().cpu().numpy())
     # residuals below are measured in the (well-conditioned) scaled space;
     # the returned x, y, obj_val are unscaled to the original problem
     x_out = x * C if rescale else x
     y_out = y * R if rescale else y
 
     # final residuals (host f64, scaled space — the space the core measured)
-    A_host = ssp.csr_matrix(At.double().cpu().numpy())
     b_h = b.double().cpu().numpy()
     c_h = c.double().cpu().numpy()
     ln = l.double().cpu().numpy()
@@ -489,7 +698,7 @@ def pdhg_solve(A, b, c, l, u, sense=None,
                 y_out = y * R if rescale else y
         except Exception:   # polish is best-effort; the FOM pair stands
             pass
-    done = done or max(pres, dres, gap) < tol
+    done = bool(done) or max(pres, dres, gap) < tol
     obj = float(c_in @ x_out)
     status = "OPTIMAL" if done else "ITERATION_LIMIT"
     return PDHGResult(x=x_out, y=y_out, obj_val=obj, iter_count=int(iters),
@@ -503,23 +712,16 @@ def pdhg_solve(A, b, c, l, u, sense=None,
 def pdhg_general_lp(lp, tol: float = 1e-6, max_iters: int = 100_000,
                     x0=None, y0=None, sparse: bool | None = None,
                     mode: str = "adaptive", device=None) -> PDHGResult:
-    """PDHG on a GeneralLP, through the dense ``pdhg_solve`` (K3 or K4 on
-    the card).  The JAX function keeps A sparse (BCOO) when asked, or by
-    default for big sparse instances (m n > 1e6 and nnz < 0.1 m n); that
-    route is not ported, so the port raises ``NotImplementedError``
-    (ROADMAP 1.11) wherever the JAX function would take it, rather than
-    densify A.  ``device`` as for ``pdhg_solve``."""
+    """PDHG on a GeneralLP.  ``sparse=True`` keeps A sparse (the JAX
+    package's BCOO route: a CSR operator on the card); the default picks
+    sparse for big, sparse instances (m n > 1e6 and nnz < 0.1 m n), else
+    A runs dense (K3 or K4 on the card).  ``device`` as for
+    ``pdhg_solve``."""
     A_sp = ssp.csr_matrix(lp.A)
     if sparse is None:
         sparse = (A_sp.shape[0] * A_sp.shape[1] > 1_000_000
                   and A_sp.nnz < 0.1 * A_sp.shape[0] * A_sp.shape[1])
-    if sparse:
-        raise NotImplementedError(
-            f"pdhg_general_lp: {A_sp.shape[0]}x{A_sp.shape[1]} with "
-            f"{A_sp.nnz} nonzeros takes the sparse (BCOO) route, which is "
-            "not ported yet (ROADMAP 1.11); pass sparse=False to run it "
-            "dense")
-    A = np.asarray(A_sp.todense())
+    A = A_sp if sparse else np.asarray(A_sp.todense())
     return pdhg_solve(A, lp.b, lp.c, lp.l, lp.u, sense=lp.sense, tol=tol,
                       max_iters=max_iters, x0=x0, y0=y0, mode=mode,
                       device=device)

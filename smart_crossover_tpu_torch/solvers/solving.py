@@ -3,12 +3,11 @@
 Port of ``smart_crossover_tpu/solvers/solving.py``: the host methods
 (presolve, barrier, the simplex methods, the perturbation crossover, the
 network simplex) are the JAX module's logic with the port's imports; the
-device methods take a ``device=`` keyword (the CUDA card by default) and
-run the port's kernels: 'first_order' K3 or K4 through ``pdhg_solve``,
-'sinkhorn' K1, 'device_simplex' K1 and K2.  Routes that are not ported
-raise ``NotImplementedError`` naming their ROADMAP item: the sparse
-first-order LP and ``solve_mcf(method='first_order')`` (1.11), and the
-device simplex engines other than 'mega' (1.6b).
+device methods take a ``device=`` keyword (the CUDA card by default):
+'first_order' runs ``pdhg_solve`` (K3 or K4 on a dense A; the sparse
+route on a sparse A and on an MCF's incidence matrix), 'sinkhorn' K1,
+'device_simplex' K1 and the pivot engine ``deviceSimplexEngine`` names
+(the default 'parent', or 'mega' on K2, 'anc', 'packed', 'mask').
 
 Drop-in capability replacement for the reference's solver_caller layer
 (reference solver_caller/solving.py:13-133 plus the Gurobi/CPLEX/Mosek
@@ -21,7 +20,7 @@ Output contract — but every method dispatches to the in-house engines:
                        -> bounded-variable revised primal simplex
 * 'dual_simplex'       -> true dual simplex when a dual-feasible warm basis
                           is supplied (primal fallback otherwise)
-* 'first_order'/'pdhg' -> restarted PDHG (device; dense)
+* 'first_order'/'pdhg' -> restarted PDHG (device; dense or sparse)
 * 'network_simplex'    -> warm-started network simplex (MCF/OT)
 * 'sinkhorn'           -> entropic first-order plan (OT only)
 
@@ -485,8 +484,9 @@ def solve_mcf(mcf: MinCostFlow,
               warm_start_basis: Optional[Basis] = None,
               device=None) -> Output:
     """Solve a min-cost-flow problem (parity with reference solving.py:97-113).
-    Every ported MCF method runs on the host and ignores ``device``;
-    'first_order' (the JAX package's BCOO PDHG) raises (ROADMAP 1.11)."""
+    ``device`` goes to 'first_order' (PDHG on the sparse incidence
+    matrix; the CUDA card by default); the other methods run on the
+    host."""
     _check_backend(solver)
     if settings is None:
         settings = SolverSettings()
@@ -507,11 +507,38 @@ def solve_mcf(mcf: MinCostFlow,
                       runtime=res.runtime, iter_count=res.iter_count,
                       rcost=res.rcost, basis=res.basis, status=res.status)
     if method in ("first_order", "pdhg"):
-        # the JAX package keeps the incidence matrix sparse (BCOO) on the
-        # device for this route; the port has no sparse PDHG yet
-        raise NotImplementedError(
-            "solve_mcf(method='first_order'): the sparse (BCOO) PDHG on the "
-            "incidence matrix is not ported yet (ROADMAP 1.11)")
+        # matrix-free PDHG as the explicit first-order engine (the paper's
+        # algorithms accept FOM warm starts) on the sparse incidence matrix;
+        # barrier requests are NOT rerouted here — the IPM's
+        # tree-preconditioned PCG handles large graph Laplacians directly
+        # (solvers/laplacian.py)
+        import scipy.sparse as ssp
+
+        from smart_crossover_tpu_torch.solvers.pdhg import pdhg_solve
+
+        # active-set polish only when the FOM pair IS the final product
+        # (no crossover, tight tol): for warm starts it spends minutes of
+        # LSMR at GOTO-17 scale sharpening a point the network simplex
+        # re-certifies anyway
+        fom_final = (settings.crossover != "on"
+                     and settings.barrierTol <= 1e-6)
+        res = pdhg_solve(ssp.csr_matrix(mcf.A), mcf.b, mcf.c,
+                         np.zeros(mcf.n), mcf.u,
+                         tol=max(settings.barrierTol, 1e-7),
+                         max_iters=settings.firstOrderMaxIters,
+                         polish=fom_final, device=device)
+        out_interior = Output(x=res.x, y=res.y, x_bar=res.x,
+                              obj_val=res.obj_val, runtime=res.runtime,
+                              bar_iter_count=res.iter_count,
+                              status=res.status)
+        if settings.crossover != "on" or res.status != "OPTIMAL":
+            return out_interior
+        ns = network_simplex(mcf, max_iter=settings.networkSimplexMaxIters)
+        return Output(x=ns.x, y=ns.y, x_bar=res.x, obj_val=ns.obj_val,
+                      runtime=res.runtime + ns.runtime,
+                      iter_count=ns.iter_count,
+                      bar_iter_count=res.iter_count, rcost=ns.rcost,
+                      basis=ns.basis, status=ns.status)
     if method == "barrier":
         l = np.zeros(mcf.n)
         res = ipm_solve(mcf.A, mcf.b, mcf.c, l, mcf.u,
@@ -542,8 +569,8 @@ def solve_ot(ot: OptTransport,
              warm_start_basis: Optional[Basis] = None,
              device=None) -> Output:
     """Solve an optimal transport problem (parity with solving.py:116-133).
-    ``device`` goes to 'sinkhorn' and 'device_simplex' (the CUDA card by
-    default); the MCF methods ignore it."""
+    ``device`` goes to 'sinkhorn', 'device_simplex' and the MCF method
+    'first_order' (the CUDA card by default)."""
     _check_backend(solver)
     if settings is None:
         settings = SolverSettings()
@@ -563,9 +590,8 @@ def solve_ot(ot: OptTransport,
                       runtime=rt, status="APPROXIMATE",
                       bar_iter_count=settings.firstOrderMaxIters)
     if method == "device_simplex":
-        # fully device-resident exact solve (TNET identification + batched
-        # transportation simplex, K1 and K2); only engine 'mega' is ported,
-        # and the default 'parent' raises (ROADMAP 1.6b)
+        # fully device-resident exact solve (TNET identification on K1 +
+        # the batched transportation simplex deviceSimplexEngine names)
         import time
 
         from smart_crossover_tpu_torch.parallel.batched import (

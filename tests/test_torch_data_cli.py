@@ -158,13 +158,18 @@ def test_cli_crossover_ot_and_unported_routes(tmp_path):
     r = cli("crossover", str(tmp_path / "f.ot"), "--device", "cpu")
     assert r.returncode == 0, r.stderr
     assert "status=OPTIMAL" in r.stdout
-    # the MCF crossover's warm start is the sparse first-order route
-    P_data.write_dimacs_min(
-        interop.instance_from_reference(transshipment_mcf(m=20, seed=0)),
-        tmp_path / "f.min")
+    # the MCF crossover: the sparse first-order warm start, then CNET_MCF
+    mcf = transshipment_mcf(m=20, seed=0)
+    P_data.write_dimacs_min(interop.instance_from_reference(mcf),
+                            tmp_path / "f.min")
     r = cli("crossover", str(tmp_path / "f.min"), "--device", "cpu")
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "1.11" in r.stderr
+    assert r.returncode == 0, r.stderr
+    assert "status=OPTIMAL" in r.stdout
+    obj = float(re.search(r"obj_val=(\S+),", r.stdout).group(1))
+    ref = linprog(mcf.c, A_eq=mcf.A, b_eq=mcf.b,
+                  bounds=np.stack([np.zeros(mcf.n), mcf.u], 1),
+                  method="highs").fun
+    assert obj == pytest.approx(ref, rel=1e-8)
     r = cli("bench")
     assert r.returncode != 0 and "1.0e" in r.stderr
     assert r.stdout == ""

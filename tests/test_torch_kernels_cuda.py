@@ -669,3 +669,52 @@ def test_lp_paths_reach_exact_vertices_on_card(cuda):
     assert _build.kernel_launch_counts()["pdhg_batched"] == 1
     assert out["optimal"].all()
     np.testing.assert_allclose(out["obj"], [ref, ref], rtol=1e-8)
+
+
+@pytest.mark.parametrize("engine", ["parent", "anc", "packed", "mask"])
+def test_tensor_engines_on_card_match_cpu(cuda, engine):
+    """The tensor pivot engines in float32 on the card (K1 for the warm
+    start) walk the pivots of the same engine on the CPU in float32 from
+    the card's warm start, and every basis certifies."""
+    from smart_crossover_tpu_torch.parallel.batched import ENGINES
+
+    s64, d64, M64 = _batch(3, 24, 40, seed=45)
+    s, d, M = (torch.tensor(a, dtype=torch.float32, device=cuda)
+               for a in (s64, d64, M64))
+    X0, _, _ = batched_tnet(s, d, M, 0.005, 300)
+    Bm0 = boruvka_bipartite_mst((X0 > 1e-12).float())
+    X, Bm, piv, opt = ENGINES[engine](X0, Bm0, M, max_pivots=5000)
+    cX, cB, cpiv, copt = ENGINES[engine](X0.cpu(), Bm0.cpu(), M.cpu(),
+                                         max_pivots=5000)
+    assert opt.all() and copt.all()
+    assert torch.equal(piv.cpu(), cpiv) and torch.equal(Bm.cpu(), cB)
+    assert all(c.ok for c in certify_ot_basis_batch(Bm.cpu().numpy(), s64,
+                                                    d64, M64))
+
+
+@pytest.mark.parametrize("mode", ["halpern", "adaptive"])
+def test_sparse_first_order_on_card(cuda, mode):
+    """pdhg_mcf_device and pdhg_solve on a sparse A in float32 on the card
+    launch no dense PDHG kernel and reach the same point as the CPU run in
+    float32 to 1e-3 (relative to 1 + the largest value)."""
+    import scipy.sparse as ssp
+
+    from smart_crossover_tpu_torch.data.mcf_gen import goto_like_mcf
+    from smart_crossover_tpu_torch.solvers.pdhg import pdhg_solve
+    from smart_crossover_tpu_torch.solvers.pdhg_mcf import pdhg_mcf_device
+
+    mcf = goto_like_mcf(16, 16, 4, regular=True, seed=3)
+    _build.reset_kernel_launch_counts()
+    x, y, it, _, _ = pdhg_mcf_device(mcf, mode=mode, max_iters=500,
+                                     tol=0.0)
+    cx, cy, cit, _, _ = pdhg_mcf_device(mcf, mode=mode, max_iters=500,
+                                        tol=0.0, device="cpu",
+                                        dtype=torch.float32)
+    assert it == cit == 500
+    for got, want in ((x, cx), (y, cy)):
+        assert np.abs(got - want).max() <= 1e-3 * (1 + np.abs(want).max())
+    res = pdhg_solve(ssp.csr_matrix(mcf.A), mcf.b, mcf.c, np.zeros(mcf.n),
+                     mcf.u, tol=1e-3, max_iters=20_000, mode=mode)
+    assert res.status == "OPTIMAL" and np.isfinite(res.x).all()
+    counts = _build.kernel_launch_counts()
+    assert counts["pdhg_chunk"] == counts["halpern_chunk"] == 0

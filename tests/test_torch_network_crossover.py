@@ -360,9 +360,24 @@ def test_batched_tnet_exact_auto_falls_back_to_host(monkeypatch):
     assert stats["engine"] == "host" and opt.all()
 
 
+@pytest.mark.parametrize("engine", ["device", "parent", "anc", "packed",
+                                    "mask"])
+def test_batched_tnet_exact_device_engines(engine, exact_batch):
+    """The tensor pivot engines through the certify-and-repair route
+    ('device' is 'parent'): every instance optimal, at the JAX package's
+    certified objectives (its host route)."""
+    s, d, M, jobj = exact_batch
+    stats = {}
+    X, obj, piv, opt = batched_tnet_exact(s, d, M, reg=0.005,
+                                          sinkhorn_iters=200, engine=engine,
+                                          device=CPU, stats=stats)
+    assert opt.all() and X.shape == M.shape
+    np.testing.assert_allclose(obj, jobj, rtol=OBJ_RTOL)
+    assert stats["engine"] == ("parent" if engine == "device" else engine)
+    assert stats["repaired"] == 0
+
+
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(engine="parent"), NotImplementedError, r"ROADMAP 1\.6b"),
-    (dict(engine="device"), NotImplementedError, r"ROADMAP 1\.6b"),
     (dict(mesh=object()), NotImplementedError, r"ROADMAP 1\.15"),
     (dict(engine="nope"), ValueError, "unknown engine"),
 ])

@@ -204,9 +204,16 @@ def test_estimate_opnorm_matches_svd():
 
 
 def test_sparse_and_unknown_mode_raise(rng):
+    """A sparse A takes the sparse route (on the CPU, the host scipy core
+    in both packages: bit for bit); an unknown mode raises."""
+    from jax.experimental import sparse as jsparse
+
     A, b, c, l, u, _ = _lp_eq(rng, 4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.11"):
-        pdhg_solve(ssp.csr_matrix(A), b, c, l, u)
+    got = pdhg_solve(ssp.csr_matrix(A), b, c, l, u, device="cpu")
+    want = jp.pdhg_solve(jsparse.BCOO.fromdense(jnp.asarray(A)), b, c, l, u)
+    assert got.status == want.status == "OPTIMAL"
+    np.testing.assert_array_equal(got.x, want.x)
+    np.testing.assert_array_equal(got.y, want.y)
     with pytest.raises(ValueError, match="mode"):
         pdhg_solve(A, b, c, l, u, mode="barrier")
 

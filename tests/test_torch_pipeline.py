@@ -122,9 +122,26 @@ def test_from_reference_rejects_unknown_names():
 
 @pytest.mark.parametrize("engine", ["parent", "anc", "packed", "mask", "auto"])
 def test_unported_engines_raise(engine):
-    s, d, M = _batch(1, 4, 5, seed=35)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.6b"):
-        batched_tnet_exact_device(s, d, M, engine=engine)
+    """Every engine of the JAX package's batched_tnet_exact_device runs in
+    the port (plain versions on the CPU): all certified, with the JAX
+    package's optimal f64 objectives.  'auto' names no engine there (its
+    dict lookup finds none) and the port raises ValueError."""
+    s, d, M = _batch(2, 6, 7, seed=35)
+    kw = dict(reg=0.01, sinkhorn_iters=200, max_pivots=2000)
+    if engine == "auto":
+        with pytest.raises(ValueError, match="unknown engine"):
+            batched_tnet_exact_device(s, d, M, engine=engine, device="cpu",
+                                      **kw)
+        return
+    out = batched_tnet_exact_device(s, d, M, engine=engine, device="cpu",
+                                    **kw)
+    jout = jb.batched_tnet_exact_device(s, d, M, engine=engine, **kw)
+    assert out[4].all() and np.asarray(jout[4]).all()
+    certs = certify_ot_basis_batch(out[5].numpy(), s, d, M)
+    jcerts = j_certify(np.asarray(jout[5]), s, d, M)
+    assert all(c.ok for c in certs) and all(c.ok for c in jcerts)
+    np.testing.assert_allclose([c.obj_val for c in certs],
+                               [c.obj_val for c in jcerts], rtol=1e-9)
 
 
 def test_port_never_imports_jax():

@@ -6,9 +6,11 @@ perturbation crossover, the simplex methods, the network simplex) must
 match bit for bit.  The device methods run their plain versions with
 ``device="cpu"``: PDHG on an all-equality dense LP (statuses equal,
 objectives within 1e-6 relative of each other and within barrierTol of
-HiGHS), Sinkhorn to 1e-9, the device simplex (engine 'mega') to the
-certified objective and HiGHS's to 1e-9.  Unported routes must raise and
-name their ROADMAP item.
+HiGHS), Sinkhorn to 1e-9, the device simplex (the default engine
+'parent' and 'mega') to the certified objective and HiGHS's to 1e-9.  The
+sparse first-order routes (a big sparse LP, ``solve_mcf(method=
+'first_order')``) run the host scipy core on the CPU in both packages and
+match bit for bit.
 """
 import numpy as np
 import pytest
@@ -190,20 +192,32 @@ def test_first_order_default_device_needs_a_card():
 
 def test_first_order_sparse_route_raises():
     """A large sparse LP takes the JAX package's BCOO route (m n > 1e6,
-    nnz < 0.1 m n); the port raises, naming ROADMAP 1.11, and densifies
-    nothing unasked."""
+    nnz < 0.1 m n), and the port's sparse route with it, densifying
+    nothing: on the CPU both run the host scipy core, so the facades'
+    answers match bit for bit (at barrierTol 1e-2, reached in 128
+    iterations).  ``sparse=True`` keeps a small LP sparse in both packages
+    too."""
+    from smart_crossover_tpu.solvers.pdhg import (
+        pdhg_general_lp as j_pdhg_general_lp,
+    )
     from smart_crossover_tpu_torch.solvers.pdhg import pdhg_general_lp
 
-    lp = interop.instance_from_reference(
-        random_sparse_lp(m=600, n=2400, seed=2))
-    assert lp.m * lp.n > 1_000_000
-    with pytest.raises(NotImplementedError, match="1.11"):
-        P.solve_lp(lp, method="first_order", device="cpu")
-    with pytest.raises(NotImplementedError, match="1.11"):
-        pdhg_general_lp(lp, device="cpu")
-    with pytest.raises(NotImplementedError, match="1.11"):
-        pdhg_general_lp(interop.instance_from_reference(eq_lp(0)),
-                        sparse=True, device="cpu")
+    lp_j = random_sparse_lp(m=600, n=2400, seed=2)
+    assert lp_j.m * lp_j.n > 1_000_000
+    a, b = both_lp(lp_j, "first_order", {"barrierTol": 1e-2,
+                                         "firstOrderMaxIters": 4000},
+                   device="cpu")
+    assert b.status == a.status == "OPTIMAL"
+    assert b.bar_iter_count == a.bar_iter_count
+    np.testing.assert_array_equal(b.x, a.x)
+    np.testing.assert_array_equal(b.y, a.y)
+    small = eq_lp(0)
+    a = j_pdhg_general_lp(small, sparse=True, tol=1e-8)
+    b = pdhg_general_lp(interop.instance_from_reference(small), sparse=True,
+                        tol=1e-8, device="cpu")
+    assert a.status == b.status == "OPTIMAL"
+    np.testing.assert_array_equal(b.x, a.x)
+    assert b.obj_val == pytest.approx(highs_general(small).fun, rel=1e-7)
 
 
 # -------------------------------------------------------------------- MCF
@@ -226,10 +240,41 @@ def test_solve_mcf(method, settings):
         assert b.obj_val == pytest.approx(ref.fun, rel=1e-8)
 
 
+def first_order_mcf(crossover):
+    """solve_mcf(method='first_order') in both packages on the CPU (the
+    host scipy core in both), and HiGHS's objective."""
+    mcf_j = transshipment_mcf(m=30, seed=1)
+    mcf_p = interop.instance_from_reference(mcf_j)
+    st = {"barrierTol": 1e-6, "firstOrderMaxIters": 20_000,
+          "crossover": crossover}
+    a = J.solve_mcf(mcf_j, method="first_order", settings=J_Settings(**st))
+    b = P.solve_mcf(mcf_p, method="first_order", settings=P_Settings(**st),
+                    device="cpu")
+    assert a.status == b.status == "OPTIMAL"
+    np.testing.assert_array_equal(b.x_bar, a.x_bar)
+    assert b.bar_iter_count == a.bar_iter_count
+    ref = linprog(mcf_j.c, A_eq=mcf_j.A, b_eq=mcf_j.b,
+                  bounds=np.stack([np.zeros(mcf_j.n), mcf_j.u], 1),
+                  method="highs").fun
+    return a, b, ref
+
+
 def test_solve_mcf_first_order_raises():
-    mcf = interop.instance_from_reference(transshipment_mcf(m=30, seed=1))
-    with pytest.raises(NotImplementedError, match="1.11"):
-        P.solve_mcf(mcf, method="first_order")
+    """solve_mcf(method='first_order') with crossover on: PDHG on the
+    sparse incidence matrix, then the network simplex; the interior point
+    equal bit for bit, the vertex equal and at HiGHS's objective."""
+    a, b, ref = first_order_mcf("on")
+    same(a, b)
+    assert b.obj_val == pytest.approx(ref, rel=1e-8)
+
+
+def test_solve_mcf_first_order_interior_point():
+    """With crossover off the first-order pair is the product (polished,
+    as in the JAX package): equal bit for bit, near HiGHS's objective."""
+    a, b, ref = first_order_mcf("off")
+    assert b.x is not None and b.basis is None
+    assert b.obj_val == a.obj_val
+    assert b.obj_val == pytest.approx(ref, rel=1e-5)
 
 
 # --------------------------------------------------------------------- OT
@@ -277,13 +322,28 @@ def test_solve_ot_device_simplex_mega_cpu(seed):
     assert b.x.shape == (ot_j.M.size,)
 
 
-def test_solve_ot_default_engine_raises():
-    """The default deviceSimplexEngine stays 'parent', as in the JAX
-    package, and the port has no such engine yet (ROADMAP 1.6b)."""
-    _, ot_p = ot_pair(0)
+def default_engine_case(seed):
+    """The default deviceSimplexEngine, 'parent', as in the JAX package:
+    OPTIMAL through K1's plain version and the parent-array engine, equal
+    to the JAX package's certified objective and to HiGHS's."""
+    ot_j, ot_p = ot_pair(seed)
     assert P_Settings().deviceSimplexEngine == "parent"
-    with pytest.raises(NotImplementedError, match="1.6b"):
-        P.solve_ot(ot_p, method="device_simplex", device="cpu")
+    a = J.solve_ot(ot_j, method="device_simplex",
+                   settings=J_Settings(sinkhornReg=0.01))
+    b = P.solve_ot(ot_p, method="device_simplex",
+                   settings=P_Settings(sinkhornReg=0.01), device="cpu")
+    assert a.status == b.status == "OPTIMAL"
+    assert b.obj_val == pytest.approx(a.obj_val, rel=EXACT_RTOL)
+    assert b.obj_val == pytest.approx(highs_ot(ot_j), rel=EXACT_RTOL)
+    assert b.x.shape == (ot_j.M.size,)
+
+
+def test_solve_ot_default_engine_raises():
+    default_engine_case(0)
+
+
+def test_solve_ot_device_simplex_default_engine_seed1():
+    default_engine_case(1)
 
 
 def test_solve_ot_network_simplex():
