@@ -318,10 +318,10 @@ def k2_at(scx, B, S, D, seed, reps, n_plain):
     s, d, M = to_cuda(*bench.make_batch(B, S, D, seed=seed))
     X0, _, _ = scx.batched_tnet(s, d, M, REG, SINKHORN_ITERS)
     st = tsm.mega_setup(X0, boruvka_bipartite_mst((X0 > 1e-12).float()), M)
-    k, ms, all_ms = sync_time(lambda: tsm.transport_simplex_mega(
+    k, ms, all_ms = sync_time(lambda: tsm.transport_simplex_mega_state(
         st, max_pivots=MAX_PIVOTS), reps)
     plan = dict(tsm.LAST_LAUNCH)
-    again = tsm.transport_simplex_mega(st, max_pivots=MAX_PIVOTS)
+    again = tsm.transport_simplex_mega_state(st, max_pivots=MAX_PIVOTS)
     identical = all(torch.equal(a, q) for a, q in zip(k, again))
     sub = {n: v[:n_plain] for n, v in st.items()}
     p, plain_ms, _ = sync_time(lambda: tsm.transport_simplex_mega_plain(
@@ -385,7 +385,7 @@ def stage_split(s, d, M):
     from smart_crossover_tpu_torch.ops.sinkhorn_fused import (
         sinkhorn_plan_fused)
     from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
-        mega_setup, rebuild_plan, transport_simplex_mega)
+        mega_setup, rebuild_plan, transport_simplex_mega_state)
     from smart_crossover_tpu_torch.ops.tree import (
         bipartite_tree_solve, push_to_bfs)
     from smart_crossover_tpu_torch.solvers.sinkhorn import round_to_feasible
@@ -416,7 +416,7 @@ def stage_split(s, d, M):
     mark("boruvka_support")
     st = mega_setup(X0, Bm0, M)
     mark("simplex_setup")
-    out = transport_simplex_mega(st, max_pivots=MAX_PIVOTS)
+    out = transport_simplex_mega_state(st, max_pivots=MAX_PIVOTS)
     mark("simplex_kernel")
     rebuild_plan(out[0], out[1], *M.shape[1:])
     mark("rebuild")
@@ -1259,7 +1259,7 @@ def phase_lp_fleet(scx, B, m, n, seed, reps, n_cross=None):
     highs_s = time.perf_counter() - t0
     rel = np.abs(out["obj"] - ref) / np.maximum(1.0, np.abs(ref))
     total_s = out["warm_seconds"] + out["crossover_seconds"]
-    emit({"phase": f"main_lp_fleet_{B}x{m}x{n}", "seed": seed,
+    rec = {"phase": f"main_lp_fleet_{B}x{m}x{n}", "seed": seed,
           "pdhg_iters": 4000, "n_optimal": int(out["optimal"].sum()),
           "batch": B, "crossed_over": B_x,
           "max_rel_to_highs": float(rel.max()),
@@ -1269,13 +1269,14 @@ def phase_lp_fleet(scx, B, m, n, seed, reps, n_cross=None):
           "median_pivots": float(np.median(out["pivots"])),
           "max_pivots": int(out["pivots"].max()),
           "exact_vertices_per_s": B_x / total_s, "highs_s": highs_s,
-          "launches": counts})
+          "launches": counts}
+    emit(rec)
     require(bool(out["optimal"].all()),
             f"only {int(out['optimal'].sum())}/{B_x} optimal")
     require(bool(rel.max() <= LP_OBJ_RTOL), f"fleet off HiGHS: {rel.max()}")
     require(bool(np.isfinite(out["x_bar"]).all()), "fleet warm start not finite")
     require(counts["pdhg_batched"] > 0, f"K5 not launched: {counts}")
-    return counts, dev_ms
+    return counts, dev_ms, rec
 
 
 # ---------------------------------------------------------- LP front door
@@ -1585,6 +1586,284 @@ def phase_solve_ot(scx, cert_obj):
     return counts
 
 
+
+# ------------------------------------------------------ IPM device stages
+
+IPM_CERT_TOL = 1e-8     # ipm_big's host f64 certificate (residual, gap)
+IPM_FLEET = (64, 256, 512)      # scripts/bench_fleet_ipm.py's default
+IPM_BIG = (5000, 15000)         # scripts/bench_ipm_big.py's default
+NE_OFFLOAD_LP = (1200, 4800, 2)  # random_sparse_lp(m, n, seed)
+# the float32 device stage on the card against the same call on the CPU in
+# float64 (the stopping rule given to both): float32 Cholesky at cond ~ 1/mu
+IPM_DEV_OBJ_RTOL = 1e-3         # |obj_card - obj_cpu| / (1 + |obj_cpu|)
+IPM_DEV_RES_RTOL = 1e-3         # |A x_card - b|_inf / (1 + |b|_inf)
+IPM_DEV_ITERS_APART = 2         # per instance, card against CPU
+IPM_DEV_X_ATOL = 1e-2           # max |x_card - x_cpu| (boxes [0, 1]), held
+#                                 where the stage stops at mu_exit 1e-4: at
+#                                 1e-7 float32 drifts along a degenerate
+#                                 optimal face (0.042 at 32x64x256, H100)
+
+
+def ipm_fleet_lps(B, m, n, seed=0):
+    """scripts/bench_fleet_ipm.py::make_fleet (copied: that script imports
+    JAX)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, m, n)) / np.sqrt(m)
+    xs = rng.uniform(0.2, 0.8, (B, n))
+    b = np.einsum("bmn,bn->bm", A, xs)
+    c = rng.standard_normal((B, n))
+    return A, b, c, np.zeros((B, n)), np.ones((B, n))
+
+
+def ipm_big_lp(m, n, seed=0):
+    """scripts/bench_ipm_big.py::make_lp (copied: that script imports
+    JAX)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    x0 = rng.uniform(0.2, 0.8, n)
+    b = A @ x0
+    margin = np.abs(rng.standard_normal(n)) * 0.1 + 0.01
+    c = A.T @ rng.standard_normal(m) + margin
+    return A, b, c, np.zeros(n), np.ones(n)
+
+
+def lp_certificate(A, b, c, l, u, x, y):
+    """Host f64 certificate of a primal-dual pair on a boxed LP: the
+    relative primal residual, the box violation, and the relative gap when
+    the reduced costs c - A'y split into bound duals zl = max(rc, 0),
+    zu = max(-rc, 0) (dual feasible by construction)."""
+    pres = float(np.linalg.norm(A @ x - b) / (1.0 + np.linalg.norm(b)))
+    box = float(max((l - x).max(), (x - u).max(), 0.0))
+    rc = c - A.T @ y
+    zl, zu = np.maximum(rc, 0.0), np.maximum(-rc, 0.0)
+    pobj = float(c @ x)
+    dobj = float(b @ y + l @ zl - u @ zu)
+    gap = abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
+    return {"primal_residual": pres, "box_violation": box, "gap": gap,
+            "primal_obj": pobj, "dual_obj": dobj}
+
+
+def ne_record(stats):
+    return None if stats is None else {
+        k: (len(v) if k == "fails" else v) for k, v in stats.items()}
+
+
+def synced_s(fn):
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def device_stage_vs_cpu(A, b, c, l, u, hold_x=True, **kw):
+    """ipm_dense_batched on the card in float32 against the same call on
+    the CPU in float64: the device stage's own check, since every later
+    stage (crossover, host endgame) is exact and would hide a wrong step.
+    Holds objectives, the card's primal residual, per-instance iterations
+    and, with ``hold_x``, x.  Returns the card's output, its synced
+    seconds and the record."""
+    import torch
+
+    from smart_crossover_tpu_torch.solvers.ipm_batched import (
+        ipm_dense_batched)
+
+    dev, dev_s = synced_s(lambda: ipm_dense_batched(A, b, c, l, u,
+                                                    device=DEVICE, **kw))
+    cpu = ipm_dense_batched(A, b, c, l, u, device="cpu", **kw)
+    go, wo = dev["obj_val"].double().cpu(), cpu["obj_val"]
+    obj_rel = ((go - wo).abs() / (1 + wo.abs())).max().item()
+    x_card = dev["x"].double().cpu()
+    x_err = (x_card - cpu["x"]).abs().max().item()
+    res = np.abs(np.einsum("bmn,bn->bm", A, x_card.numpy()) - b).max(1)
+    res_rel = float((res / (1 + np.abs(b).max(1))).max())
+    it_d, it_c = dev["iters"].cpu().long(), cpu["iters"].long()
+    apart = int((it_d - it_c).abs().max())
+    rec = {"kw": kw, "obj_max_rel": obj_rel, "x_max_abs": x_err,
+           "x_held": hold_x, "card_primal_res_rel": res_rel,
+           "iters_card_median": float(it_d.double().median()),
+           "iters_cpu_f64_median": float(it_c.double().median()),
+           "iters_equal": int((it_d == it_c).sum()),
+           "iters_max_abs_diff": apart,
+           "converged_card": int(dev["converged"].sum()),
+           "converged_cpu_f64": int(cpu["converged"].sum()),
+           "obj_rtol": IPM_DEV_OBJ_RTOL, "res_rtol": IPM_DEV_RES_RTOL,
+           "x_atol": IPM_DEV_X_ATOL}
+    shape = "x".join(map(str, A.shape))
+    require(dev["x"].is_cuda and dev["x"].dtype == torch.float32
+            and bool(dev["x"].isfinite().all()),
+            f"device stage {shape}: not a finite float32 card iterate")
+    require(obj_rel <= IPM_DEV_OBJ_RTOL,
+            f"device stage {shape}: objective off the CPU f64 run: {rec}")
+    require(res_rel <= IPM_DEV_RES_RTOL,
+            f"device stage {shape}: card primal residual: {rec}")
+    require(apart <= IPM_DEV_ITERS_APART,
+            f"device stage {shape}: iterations off the CPU f64 run: {rec}")
+    require(not hold_x or x_err <= IPM_DEV_X_ATOL,
+            f"device stage {shape}: x off the CPU f64 run: {rec}")
+    return dev, dev_s, rec
+
+
+def phase_ipm_device(scx, fleet_rec, big=IPM_BIG, ipm_fleet_shape=IPM_FLEET,
+                     ne_lp=NE_OFFLOAD_LP, cross_fleet=(32, 64, 256, 5)):
+    """The IPM device stages: the fleet crossover's IPM warm engines (on
+    main_lp_fleet_32x64x256's instances, beside its 'pdhg' figures), the
+    fleet barrier ipm_fleet, the single large LP ipm_big with its device
+    endgame (both DeviceNE routes), and the host IPM's NE offload.  The
+    float32 device stage of each fleet is held against the same call on
+    the CPU in float64.  No kernel of the port runs here: batched matmuls
+    and Cholesky."""
+    from smart_crossover_tpu_torch.data import random_sparse_lp
+    from smart_crossover_tpu_torch.solvers import ipm_fleet as fleet_mod
+    from smart_crossover_tpu_torch.solvers import ne_device, ne_offload
+    from smart_crossover_tpu_torch.solvers.ipm import ipm_solve
+
+    t_phase = time.perf_counter()
+    scx.reset_kernel_launch_counts()
+    rec = {"phase": "ipm_device"}
+
+    # fleet crossover: the default engine 'ipm' (no engine given) and
+    # 'ipm_refined', every vertex equal to HiGHS
+    B, m, n, seed = cross_fleet
+    A, b, c, l, u = lp_fleet(B, m, n, seed)
+    ref = np.array([highs_obj(A[i], b[i], c[i], l[i], u[i])
+                    for i in range(B)])
+    # the 'ipm' engine's device call, float32 mu_exit given to both runs
+    _, _, stage = device_stage_vs_cpu(A, b, c, l, u, hold_x=False,
+                                      tol=1e-8, max_iters=60, mu_exit=1e-7)
+    rec[f"device_stage_vs_cpu_f64_{B}x{m}x{n}"] = stage
+    cross = {}
+    for engine in ("ipm", "ipm_refined"):
+        kw = {} if engine == "ipm" else {"warm_engine": engine}
+        out = scx.batched_lp_crossover(A, b, c, l, u, device=DEVICE, **kw)
+        rel = np.abs(out["obj"] - ref) / np.maximum(1.0, np.abs(ref))
+        it = np.asarray(out["device_iters"])
+        cross[engine] = {
+            "n_optimal": int(out["optimal"].sum()),
+            "max_rel_to_highs": float(rel.max()),
+            "warm_seconds": out["warm_seconds"],
+            "host_crossover_s": out["crossover_seconds"],
+            "median_pivots": float(np.median(out["pivots"])),
+            "max_pivots": int(out["pivots"].max()),
+            "device_iters_median": float(np.median(it)),
+            "device_iters_max": int(it.max()),
+            "ipm_converged": int(np.sum(out["ipm_converged"])),
+            "exact_vertices_per_s": B / (out["warm_seconds"]
+                                         + out["crossover_seconds"])}
+        require(bool(out["optimal"].all()),
+                f"{engine}: only {int(out['optimal'].sum())}/{B} optimal")
+        require(bool(rel.max() <= LP_OBJ_RTOL),
+                f"{engine} fleet off HiGHS: {rel.max()}")
+    cross["pdhg"] = {k: fleet_rec[k] for k in (
+        "n_optimal", "max_rel_to_highs", "warm_seconds", "host_crossover_s",
+        "median_pivots", "max_pivots", "exact_vertices_per_s")}
+    rec[f"fleet_crossover_{B}x{m}x{n}"] = cross
+
+    # the fleet barrier
+    B, m, n = ipm_fleet_shape
+    A, b, c, l, u = ipm_fleet_lps(B, m, n, seed=0)
+    # ipm_fleet's own device call (device_tol, max_device_iters, float32
+    # mu_exit), given to both runs
+    dev, dev_s, stage = device_stage_vs_cpu(A, b, c, l, u, tol=1e-5,
+                                            max_iters=60, mu_exit=1e-4)
+    rec[f"device_stage_vs_cpu_f64_{B}x{m}x{n}"] = stage
+    fl, fleet_s = synced_s(lambda: scx.ipm_fleet(A, b, c, l, u, tol=1e-8,
+                                                 device=DEVICE))
+    n_ref = min(8, B)
+    ref = np.array([highs_obj(A[i], b[i], c[i], l[i], u[i])
+                    for i in range(n_ref)])
+    rel = np.abs(fl.obj[:n_ref] - ref) / np.maximum(1.0, np.abs(ref))
+    n_opt = sum(st == "OPTIMAL" for st in fl.status)
+    rec[f"ipm_fleet_{B}x{m}x{n}"] = {
+        "n_optimal": n_opt, "max_rel_to_highs_first8": float(rel.max()),
+        "device_s": fl.device_s, "endgame_s": fl.endgame_s,
+        "total_s": fleet_s,
+        "device_iters_median": float(np.median(fl.device_iters)),
+        "device_iters_max": int(fl.device_iters.max()),
+        "refine_iters_median": float(np.median(fl.refine_iters)),
+        "refine_iters_max": int(fl.refine_iters.max()),
+        "device_stage_alone_s": dev_s,
+        "device_stage_instances_per_s": B / dev_s,
+        "device_stage_converged_1e-5": int(dev["converged"].sum()),
+        "instances_per_s": B / fleet_s}
+    require(n_opt == B, f"ipm_fleet: {n_opt}/{B} OPTIMAL")
+    require(bool(rel.max() <= LP_OBJ_RTOL), f"ipm_fleet off HiGHS: {rel}")
+
+    # the single large LP, device endgame on each DeviceNE route
+    m, n = big
+    A, b, c, l, u = ipm_big_lp(m, n, seed=0)
+    runs = {}
+    real_ne = ne_device.DeviceNE
+    for route in ("default", "f32_cg"):
+        if route == "f32_cg":
+            ne_device.DeviceNE = lambda A_, **kw: real_ne(A_, use_f64=False,
+                                                          **kw)
+        try:
+            res, big_s = synced_s(lambda: fleet_mod.ipm_big(
+                A, b, c, l, u, tol=1e-8, device=DEVICE))
+        finally:
+            ne_device.DeviceNE = real_ne
+        cert = lp_certificate(A, b, c, l, u, res.x, res.y)
+        runs[route] = {"status": res.status, "obj": res.obj_val,
+                       "total_s": big_s, "device_s": res.device_s,
+                       "endgame_s": res.endgame_s,
+                       "device_iters": res.device_iters,
+                       "endgame_iters": res.endgame_iters,
+                       "ne_stats": ne_record(fleet_mod.last_ne_stats),
+                       "certificate": cert}
+        require(fleet_mod.last_ne_stats is not None,
+                f"ipm_big ({route}): the device endgame did not engage")
+        require(res.status == "OPTIMAL", f"ipm_big ({route}): {res.status}")
+        require(cert["primal_residual"] <= IPM_CERT_TOL
+                and cert["box_violation"] <= IPM_CERT_TOL
+                and cert["gap"] <= IPM_CERT_TOL,
+                f"ipm_big ({route}) certificate: {cert}")
+    rec[f"ipm_big_{m}x{n}"] = runs
+
+    # the host IPM's normal equations formed on the card
+    m, n, seed = ne_lp
+    lp = random_sparse_lp(m=m, n=n, seed=seed)
+    args = (lp.get_standard_A(), lp.b, lp.get_standard_c(),
+            *lp.get_standard_bounds())
+    real_maybe = ne_offload.maybe_device_ne
+    made = []
+
+    def spy(A_):
+        made.append(real_maybe(A_))
+        return made[-1]
+
+    ne_offload.maybe_device_ne = spy
+    os.environ["SCX_NE_OFFLOAD"] = "1"
+    try:
+        off, off_s = synced_s(lambda: ipm_solve(*args, tol=1e-8))
+    finally:
+        del os.environ["SCX_NE_OFFLOAD"]
+        ne_offload.maybe_device_ne = real_maybe
+    forms = made[0].forms if made and made[0] is not None else 0
+    host, host_s = synced_s(lambda: ipm_solve(*args, tol=1e-8))
+    rel = abs(off.obj_val - host.obj_val) / max(1.0, abs(host.obj_val))
+    rec[f"ne_offload_{m}x{n}"] = {
+        "seed": seed, "host": {"status": host.status, "obj": host.obj_val,
+                               "iters": host.iter_count, "s": host_s},
+        "offload": {"status": off.status, "obj": off.obj_val,
+                    "iters": off.iter_count, "s": off_s,
+                    "device_forms": forms},
+        "rel_obj": rel}
+    require(forms > 0, "NE offload: no normal equations formed on the card")
+    require(off.status == host.status == "OPTIMAL",
+            f"NE offload: {off.status} / {host.status}")
+    require(rel <= LP_OBJ_RTOL, f"NE offload off the host IPM: {rel}")
+
+    rec["launches"] = scx.kernel_launch_counts()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1623,12 +1902,12 @@ def main() -> int:
     kernels += [phase_k3(512, 2048, seed=3), phase_k4(512, 2048, seed=3),
                 phase_k5()]
     single, single_ref = phase_lp_single(scx, 512, 2048, seed=7)
-    fleet, _ = phase_lp_fleet(scx, 32, 64, 256, seed=5, reps=5)
+    fleet, _, fleet_rec = phase_lp_fleet(scx, 32, 64, 256, seed=5, reps=5)
     # the 64 x 256 x 512 fleet's host crossover took 188-344 s by call:
     # its first 32 instances are crossed over (K5 runs at 32 there and is
     # timed at all 64)
-    fleet_big, big_ms = phase_lp_fleet(scx, 64, 256, 512, seed=6, reps=3,
-                                       n_cross=32)
+    fleet_big, big_ms, _ = phase_lp_fleet(scx, 64, 256, 512, seed=6,
+                                          reps=3, n_cross=32)
     kernels[2]["launches"] = single["adaptive"]["pdhg_chunk"]
     kernels[3]["launches"] = single["halpern"]["halpern_chunk"]
     kernels[4]["launches"] = fleet["pdhg_batched"]
@@ -1638,6 +1917,7 @@ def main() -> int:
     kernels[4]["bound_ms_64x256x512"] = bound(*fleet_work(64, 256, 512,
                                                           4000))[0]
 
+    phase_ipm_device(scx, fleet_rec)
     front = phase_lp_front_door(scx, 512, 2048, seed=7, ref=single_ref)
     phase_perturb(scx, 800, 3200, seed=0)
     phase_cli(scx, 800, 3200, seed=1)

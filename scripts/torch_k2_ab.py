@@ -103,7 +103,7 @@ def main() -> int:
         # the cluster plan's largest C; 8 is its own
         tsm._MAX_CLUSTER = C
         try:
-            return tsm.transport_simplex_mega(st, max_pivots=MAX_PIVOTS)
+            return tsm.transport_simplex_mega_state(st, max_pivots=MAX_PIVOTS)
         finally:
             tsm._MAX_CLUSTER = 8
 

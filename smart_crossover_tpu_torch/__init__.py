@@ -5,7 +5,8 @@ the host route), the paper's network crossover (``sinkhorn`` then
 first-order path (PDHG warm start, then an exact host vertex), and the LP
 front door: the ``solve_lp`` / ``solve_mcf`` / ``solve_ot`` facade and the
 paper's perturbation crossover for general LPs (``run_perturb_algorithm``,
-host barrier and simplex).
+host barrier and simplex), and the barrier fleets (``ipm_fleet``: a batched
+Mehrotra IPM on the card, then a host f64 endgame).
 
 The layout mirrors ``smart_crossover_tpu/``; each module names its JAX
 counterpart.  Plain tensor code is PyTorch; every TPU kernel of the JAX
@@ -45,6 +46,7 @@ from smart_crossover_tpu_torch.parallel.batched import (
     tnet_single,
 )
 from smart_crossover_tpu_torch.parallel.batched_lp import batched_lp_crossover
+from smart_crossover_tpu_torch.solvers.ipm_fleet import ipm_fleet
 from smart_crossover_tpu_torch.solvers.pdhg import PDHGResult, pdhg_solve
 from smart_crossover_tpu_torch.solvers.pdhg_batched import pdhg_dense_batched
 from smart_crossover_tpu_torch.solvers.settings import SolverSettings
@@ -54,6 +56,9 @@ from smart_crossover_tpu_torch.solvers.solving import (
     solve_mcf,
     solve_ot,
 )
+from smart_crossover_tpu_torch.utils.timer import Timer
+
+__version__ = "0.1.0"
 
 __all__ = [
     "Basis",
@@ -65,6 +70,8 @@ __all__ = [
     "PDHGResult",
     "SolverSettings",
     "StandardLP",
+    "Timer",
+    "__version__",
     "batched_lp_crossover",
     "batched_tnet",
     "batched_tnet_exact",
@@ -73,6 +80,7 @@ __all__ = [
     "certify_ot_basis",
     "certify_ot_basis_batch",
     "column_generation",
+    "ipm_fleet",
     "kernel_launch_counts",
     "network_crossover",
     "pdhg_dense_batched",

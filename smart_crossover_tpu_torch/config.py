@@ -61,3 +61,17 @@ def to_device(x, device, dtype=None) -> torch.Tensor:
         dtype = device_float(device, t.dtype if t.is_floating_point()
                              else torch.float64)
     return t.to(device=device, dtype=dtype).contiguous()
+
+
+def use_kernel(use_pallas, device) -> bool:
+    """The port's reading of the JAX package's ``use_pallas``: the choice
+    between a hand-written kernel and its plain version.  None takes the
+    kernel where there is one (a CUDA card), True asks for it and raises
+    elsewhere, False runs the plain version on any device."""
+    dev = torch.device(device)
+    if use_pallas is None:
+        return dev.type == "cuda"
+    if use_pallas and dev.type != "cuda":
+        raise ValueError(f"use_pallas=True asks for the CUDA kernel, and "
+                         f"there is none on {dev}")
+    return bool(use_pallas)

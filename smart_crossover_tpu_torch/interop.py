@@ -24,12 +24,12 @@ from smart_crossover_tpu_torch.models import (
 )
 
 #: OT instance batch (s, d, M); warm start (X0, Bm); mega setup state
-#: (parent, N, dep, w, Xv); an LP (A, b, c, l, u) and the PDHG state
+#: (parent, N, dep, w, Xv); an LP (A, b, c, l, u), the PDHG state
 #: (x, y, Ax, step-weighted sums xs, ys, Halpern anchors xa, ya, Axa, and
-#: the operator norm opnorm)
+#: the operator norm opnorm) and the IPM's bound duals (zl, zu)
 NAMES = ("s", "d", "M", "X0", "Bm", "parent", "N", "dep", "w", "Xv",
          "A", "b", "c", "l", "u", "x", "y", "Ax", "xs", "ys", "xa", "ya",
-         "Axa", "opnorm")
+         "Axa", "opnorm", "zl", "zu")
 
 
 def from_reference(device="cpu", **arrays) -> dict:

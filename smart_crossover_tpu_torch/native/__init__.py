@@ -1,6 +1,7 @@
 """Native (C++) network-simplex core, built with g++ at first use.
 
-Port of ``smart_crossover_tpu/native/{__init__,build}.py``.  The source
+Port of ``smart_crossover_tpu/native/__init__.py`` (``build.py`` is the
+command-line entry).  The source
 ``netsimplex.cpp`` (a byte-for-byte copy of the JAX package's, so that the
 parity tests can run both packages on one library) is compiled with the JAX
 package's flags into ``build/smart_crossover_tpu_torch/`` beside the
@@ -72,7 +73,7 @@ def library_path(gxx: str | None = None) -> Path:
     return BUILD_DIR / f"libscx_netsimplex_{h.hexdigest()[:16]}.so"
 
 
-def build(timeout: float = BUILD_TIMEOUT_S) -> Path:
+def build_library(timeout: float = BUILD_TIMEOUT_S) -> Path:
     """Compile the core unless a library for this source, these flags and
     this CPU exists; return its path.  Raises on a failed build."""
     gxx = _gxx()
@@ -101,7 +102,7 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = ctypes.CDLL(str(build_library()))
             lib.scx_network_simplex.argtypes = _ARGTYPES
             lib.scx_network_simplex.restype = ctypes.c_int
             _lib = lib

@@ -43,7 +43,7 @@ def network_crossover(x: np.ndarray,
                       mcf: Optional[MinCostFlow] = None,
                       method: str = "tnet",
                       solver: str = "JAX",
-                      solver_settings: SolverSettings | None = None,
+                      solver_settings: SolverSettings | None = None, *,
                       device=None, stats: dict | None = None) -> Output:
     """Crossover from an inaccurate flow solution to an optimal vertex.
 
@@ -82,7 +82,7 @@ def network_crossover(x: np.ndarray,
             raise ValueError(
                 f"x has {x.size} entries but the OT instance has "
                 f"{ot.n} arcs (s.size * d.size)")
-        manager = OTManager(ot, device)
+        manager = OTManager(ot, device=device)
     elif method == "cnet_mcf":
         if mcf is None:
             raise ValueError("method 'cnet_mcf' requires a MinCostFlow instance")
@@ -90,7 +90,7 @@ def network_crossover(x: np.ndarray,
             raise ValueError(
                 f"x has {x.size} entries but the MCF instance has "
                 f"{mcf.n} arcs")
-        manager = MCFManager(mcf, device)
+        manager = MCFManager(mcf, device=device)
     else:
         raise ValueError(
             "Invalid method. Choose from 'tnet', 'cnet_ot', 'cnet_mcf'.")
@@ -125,7 +125,7 @@ def network_crossover(x: np.ndarray,
     timer.stop()
     t0 = time.perf_counter()
     cg_output = column_generation(manager, queue, solver, solver_settings,
-                                  stats)
+                                  stats=stats)
     stats["cg_s"] = time.perf_counter() - t0
     stats["cg_pivots"] = cg_output.iter_count or 0
     stats["direct_solve"] = cg_output.status == "CG_FAILED"
@@ -159,7 +159,7 @@ def network_crossover(x: np.ndarray,
 def column_generation(net_manager: NetworkManager,
                       queue: np.ndarray,
                       solver: str = "JAX",
-                      solver_settings: SolverSettings | None = None,
+                      solver_settings: SolverSettings | None = None, *,
                       stats: dict | None = None) -> Output:
     """Column-generation outer loop (reference algorithms.py:81-144).
 

@@ -101,14 +101,27 @@ def certify_ot_basis(Bm, s, d, M,
 
 
 def certify_ot_basis_batch(Bm, s, d, M, feas_tol: float | None = None,
-                           rcost_tol: float | None = None
+                           rcost_tol: float | None = None,
+                           threads: int | None = 1
                            ) -> list[OTCertificate]:
-    """Certify each instance of a batch (serially: scipy's tree LU holds
-    the interpreter lock, so threads do not help)."""
+    """Certify a batch.  Serial by default: each instance is GIL-held
+    scipy/numpy work (scipy's tree LU releases nothing), so a thread pool
+    contends for the interpreter lock.  Pass threads>1 only on hosts where
+    it has been measured to win."""
+    import concurrent.futures as cf
+
     kw = {}
     if feas_tol is not None:
         kw["feas_tol"] = feas_tol
     if rcost_tol is not None:
         kw["rcost_tol"] = rcost_tol
+    B = np.shape(M)[0]
+    if threads is None:
+        threads = 1
+    if threads > 1 and B > 1:
+        with cf.ThreadPoolExecutor(max_workers=threads) as pool:
+            return list(pool.map(
+                lambda i: certify_ot_basis(Bm[i], s[i], d[i], M[i], **kw),
+                range(B)))
     return [certify_ot_basis(Bm[i], s[i], d[i], M[i], **kw)
-            for i in range(np.shape(M)[0])]
+            for i in range(B)]

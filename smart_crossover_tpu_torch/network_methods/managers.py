@@ -73,7 +73,7 @@ class MCFManager:
     Capability parity with reference MCFManagerStd (net_manager.py:116-319).
     """
 
-    def __init__(self, mcf: MinCostFlow, device=None) -> None:
+    def __init__(self, mcf: MinCostFlow, *, device=None) -> None:
         self.device = resolve_device(device)
         self.mcf = mcf.copy()
         self.m = mcf.m
@@ -253,7 +253,7 @@ class OTManager:
     """Manager exploiting the dense bipartite structure of optimal transport
     (parity with reference OTManager, net_manager.py:322-509)."""
 
-    def __init__(self, ot: OptTransport, device=None) -> None:
+    def __init__(self, ot: OptTransport, *, device=None) -> None:
         self.device = resolve_device(device)
         self.ot = ot
         self.m = ot.s.size + ot.d.size

@@ -37,10 +37,12 @@ from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
 )
 
 
-def build_ancestor_matrix(parent):
+def build_ancestor_matrix(parent, dtype=None):
     """N[b, u, w] = True iff w is on u's root path (u and the root
     included), for parent (B, V).  K = ceil(log2 V) doubling rounds:
-    N'[u] = N[u] | N[ptr[u]], ptr' = ptr[ptr]."""
+    N'[u] = N[u] | N[ptr[u]], ptr' = ptr[ptr].  ``dtype`` (the JAX
+    package's matmul dtype for its one-hot rounds) is a no-op: N is
+    bool."""
     B, V = parent.shape
     b = torch.arange(B, device=parent.device)[:, None]
     N = torch.eye(V, dtype=torch.bool,

@@ -406,9 +406,9 @@ def _transport_simplex_mega_cuda(state, tol, max_pivots, refresh,
     return parent, Xv, w, pot, mask, stats[:, 0].long(), stats[:, 1] != 0
 
 
-def transport_simplex_mega(state, tol: float = 1e-7, max_pivots: int = 5000,
-                           refresh: int = 128, *,
-                           smem_budget: int = SMEM_PER_BLOCK):
+def transport_simplex_mega_state(state, tol: float = 1e-7,
+                                 max_pivots: int = 5000, refresh: int = 128,
+                                 *, smem_budget: int = SMEM_PER_BLOCK):
     """Pivot a ``mega_setup`` state to optimality: the kernel for CUDA
     tensors, the plain version for CPU tensors.  Returns (parent, Xv, w,
     pot, mask, pivots, optimal).  ``smem_budget`` reaches
@@ -422,19 +422,32 @@ def transport_simplex_mega(state, tol: float = 1e-7, max_pivots: int = 5000,
     return transport_simplex_mega_plain(state, tol, max_pivots, refresh)
 
 
-def batched_transport_simplex_mega(X, Bm, M, tol: float = 1e-7,
+def batched_transport_simplex_mega(X, Bm, M, s=None, d=None,
+                                   tol: float = 1e-7,
                                    max_pivots: int = 5000,
-                                   refresh: int = 128):
+                                   refresh: int = 128,
+                                   interpret: bool | None = None):
     """Pivot a batch of basic feasible plans to optimality.
 
-    Contract of the JAX package's ``batched_transport_simplex_mega``:
-    X (B, S, D) basic feasible plans, Bm (B, S, D) spanning-tree masks, M
-    (B, S, D) costs.  Returns (X_opt, Bm_opt, pivots, optimal) with batch
-    dims; X_opt is float32, as the pivot loop runs in float32.
+    Same contract as the other device engines (and the JAX package's
+    ``batched_transport_simplex_mega``): X (B, S, D) basic feasible plans,
+    Bm (B, S, D) spanning-tree masks, M (B, S, D) costs; s and d are
+    accepted and unused, as there.  ``interpret`` (the JAX package's Pallas
+    interpret mode) is a no-op: the route follows M's device.  Returns
+    (X_opt, Bm_opt, pivots, optimal) with batch dims; X_opt is float32, as
+    the pivot loop runs in float32.
     """
     B, S, D = M.shape
     state = mega_setup(X, Bm, M)
-    parent, Xv, _, _, mask, pivots, optimal = transport_simplex_mega(
+    parent, Xv, _, _, mask, pivots, optimal = transport_simplex_mega_state(
         state, tol, max_pivots, refresh)
     X_out = rebuild_plan(parent, Xv, S, D)
     return X_out.clamp(min=0.0), mask, pivots, optimal
+
+
+def transport_simplex_mega(X, Bm, M, s=None, d=None, tol: float = 1e-7,
+                           max_pivots: int = 5000, refresh: int = 128):
+    """Single-instance wrapper matching the other engines' signature."""
+    Xb, Bmb, piv, opt = batched_transport_simplex_mega(
+        X[None], Bm[None], M[None], None, None, tol, max_pivots, refresh)
+    return Xb[0], Bmb[0], piv[0], opt[0]

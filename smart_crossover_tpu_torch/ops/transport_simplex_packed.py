@@ -176,7 +176,8 @@ def _packed_step(st, tol: float, refresh_every: int, max_pivots: int,
 def batched_transport_simplex_packed(X, Bm, M, s=None, d=None,
                                      tol: float = 1e-7,
                                      max_pivots: int = 5000,
-                                     refresh: int = 128, blocks: int = 16):
+                                     refresh: int = 128, *,
+                                     blocks: int = 16):
     """Pivot a batch of basic feasible transport plans to optimality
     (bit-packed ancestor matrix, block pricing).
 

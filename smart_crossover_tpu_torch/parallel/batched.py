@@ -20,7 +20,11 @@ import time
 import numpy as np
 import torch
 
-from smart_crossover_tpu_torch.config import resolve_device, to_device
+from smart_crossover_tpu_torch.config import (
+    resolve_device,
+    to_device,
+    use_kernel,
+)
 from smart_crossover_tpu_torch.models import Basis, OptTransport
 from smart_crossover_tpu_torch.network_methods.certify import (
     certify_ot_basis_batch,
@@ -30,7 +34,10 @@ from smart_crossover_tpu_torch.network_methods.tree_bi import (
 )
 from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
 from smart_crossover_tpu_torch.ops.ranking import ot_flow_indicators
-from smart_crossover_tpu_torch.ops.sinkhorn_fused import sinkhorn_plan_fused
+from smart_crossover_tpu_torch.ops.sinkhorn_fused import (
+    sinkhorn_plan_fused,
+    sinkhorn_plan_fused_plain,
+)
 from smart_crossover_tpu_torch.ops.transport_simplex import (
     batched_transport_simplex,
 )
@@ -74,10 +81,12 @@ def _on_device(s, d, M, device):
 
 
 def _warm_start(s, d, M, reg: float, sinkhorn_iters: int,
-                tree_weights: str = "flow"):
+                tree_weights: str = "flow", use_pallas: bool | None = None):
     eps = reg * M.amax((1, 2))
     Mn = (M / eps[:, None, None]).contiguous()
-    plan, f, g = sinkhorn_plan_fused(s, d, Mn, 1.0, sinkhorn_iters)
+    sink = sinkhorn_plan_fused if use_kernel(use_pallas, M.device) \
+        else sinkhorn_plan_fused_plain
+    plan, f, g = sink(s, d, Mn, 1.0, sinkhorn_iters)
     if tree_weights == "reduced_cost":
         # the JAX package's -(M - f - g) over eps: a positive per-instance
         # scaling, which leaves Borůvka's tree unchanged
@@ -91,30 +100,36 @@ def _warm_start(s, d, M, reg: float, sinkhorn_iters: int,
 
 
 def batched_tnet(s, d, M, reg: float = 0.02, sinkhorn_iters: int = 200,
-                 tree_weights: str = "flow", device=None):
+                 tree_weights: str = "flow",
+                 use_pallas: bool | None = None, *, device=None):
     """TNET over a batch: s (B, S), d (B, D), M (B, S, D), numpy arrays or
     tensors.  ``tree_weights='reduced_cost'`` builds the spanning tree from
-    the Sinkhorn potentials instead of the flow indicators.  ``device``: M's
-    device if M is a tensor, else the CUDA card (without one that default
-    raises).  Returns (X_vertex, push_iters, obj), tensors on the device."""
+    the Sinkhorn potentials instead of the flow indicators.  ``use_pallas``
+    picks the Sinkhorn kernel (None on a card, or True) or its plain
+    version (False, or None on the CPU; True without a card raises).
+    ``device``: M's device if M is a tensor, else the CUDA card (without one
+    that default raises).  Returns (X_vertex, push_iters, obj), tensors on
+    the device."""
     s, d, M = _on_device(s, d, M, device)
-    X, push = _warm_start(s, d, M, reg, sinkhorn_iters, tree_weights)
+    X, push = _warm_start(s, d, M, reg, sinkhorn_iters, tree_weights,
+                          use_pallas)
     return X, push, (X * M).sum((1, 2))
 
 
 def tnet_single(s, d, M, reg: float = 0.02, sinkhorn_iters: int = 200,
-                tree_weights: str = "flow", device=None):
+                tree_weights: str = "flow", *, device=None):
     """One instance, s (S,), d (D,), M (S, D): Sinkhorn -> indicators ->
     MST -> tree solve -> push.  Returns (X_vertex, push_iters, obj)."""
     X, push, obj = batched_tnet(s[None], d[None], M[None], reg,
-                                sinkhorn_iters, tree_weights, device)
+                                sinkhorn_iters, tree_weights, device=device)
     return X[0], push[0], obj[0]
 
 
 def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
                               sinkhorn_iters: int = 1000,
                               max_pivots: int = 5000,
-                              engine: str = "mega", device=None):
+                              engine: str = "mega",
+                              chunk_b: int | None = None, *, device=None):
     """Exact batched OT crossover on one device.
 
     The TNET pipeline finds a feasible tree vertex per instance; Borůvka
@@ -128,6 +143,8 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
             package's default; 'device' names it too), 'anc', 'packed'
             and 'mask' (the oracle), batched tensor code that pivots the
             batch in lockstep.
+        chunk_b: the JAX package's ``lax.map`` chunk size; a no-op here
+            (every engine runs the whole batch at once).
         device: where to run (default: M's device if M is a tensor, else
             the CUDA card; without one that default raises).  On CUDA the
             stages run in float32 (the Sinkhorn and 'mega' through the
@@ -165,7 +182,7 @@ def _solve_ot(s, d, M, vbasis):
 def batched_tnet_exact(s, d, M, reg: float = 0.005,
                        sinkhorn_iters: int = 1000, mesh=None,
                        engine: str = "auto",
-                       max_pivots: int | None = None, device=None,
+                       max_pivots: int | None = None, *, device=None,
                        stats: dict | None = None):
     """Batched crossover to EXACT optimal vertices, certified on the host.
 

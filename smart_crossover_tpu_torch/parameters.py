@@ -18,6 +18,13 @@ PRIMAL_DUAL_GAP_THRESHOLD = 1e-8
 PROJECTOR_THRESHOLD = 1e-8
 PERTURB_UPPER_BOUND = 1e6
 
-# entropic regularisation of the Sinkhorn warm start, relative to max cost
-SINKHORN_DEFAULT_REG = 1e-2
+# in-house solver defaults
+SINKHORN_DEFAULT_REG = 1e-2   # entropic regularisation, relative to max cost
+SINKHORN_MAX_ITERS = 1000
+PDHG_MAX_ITERS = 100_000
+PDHG_RESTART_PERIOD = 40
+IPM_MAX_ITERS = 200
+SIMPLEX_MAX_ITERS = 200_000
 NETWORK_SIMPLEX_MAX_ITERS = 10_000_000
+CG_TOL = 1e-8
+CG_MAX_ITERS = 1000

@@ -13,12 +13,10 @@ equations ``A D A' dy = r`` factorised with sparse LU on the host in float64
 Returns a genuinely *interior* iterate (strictly inside the bounds wherever
 they are finite), which is what the crossover algorithms consume as x_bar.
 
-Host copy of ``smart_crossover_tpu/solvers/ipm.py``: the import paths
-differ, and the opt-in device offload of the normal equations
-(``solvers/ne_offload.py``, reached at ``ipm.py:295-299``) is left out.
-That hook returns None on every machine but a TPU, so the port computes
-what the JAX package computes there.  The device normal equations are
-ROADMAP 1.12.
+Host copy of ``smart_crossover_tpu/solvers/ipm.py``; only the import paths
+differ.  The opt-in device formation of the normal equations
+(``solvers/ne_offload.py``) forms them on a CUDA card where the JAX
+package formed them on a TPU.
 """
 from __future__ import annotations
 
@@ -95,7 +93,8 @@ def _factor_spd(M, reg, force_dense: bool = False):
     SuperLU backsolves one RHS at a time and is ~10x slower there even
     when the factor itself is sparse.
 
-    Accepts a scipy sparse matrix or a dense ndarray.
+    Accepts a scipy sparse matrix or a dense ndarray (e.g. the device-
+    formed product from solvers/ne_offload.py).
 
     Returns ``solve(rhs)`` accepting a vector or matrix right-hand side.
     """
@@ -298,9 +297,11 @@ def ipm_solve(A, b, c, l, u,
     bnorm = 1.0 + np.linalg.norm(b)
     cnorm = 1.0 + np.linalg.norm(c)
 
-    # the normal equations are formed on the host: the JAX package's opt-in
-    # TPU offload of that product (solvers/ne_offload.py) is not ported;
-    # the device normal equations are ROADMAP 1.12
+    # device offload of the dense normal-equations formation (opt-in;
+    # see solvers/ne_offload.py for the accuracy/eligibility contract)
+    from smart_crossover_tpu_torch.solvers.ne_offload import maybe_device_ne
+
+    device_ne = maybe_device_ne(A)
 
     # network detection for the tree-PCG normal-equations path (large MCF)
     net_struct = None
@@ -437,7 +438,10 @@ def ipm_solve(A, b, c, l, u,
             nonfree = ~free
             d_nf = np.where(nonfree, 1.0 / np.maximum(dinv, 1e-14), 0.0)
             d_nf = np.minimum(d_nf, d_direct_cap)
-            M = _scaled(A, d_nf) @ AT
+            if device_ne is not None and mu > 1e-6:
+                M = device_ne.form(d_nf)        # f64 GEMM on the card
+            else:
+                M = _scaled(A, d_nf) @ AT
             reg = 1e-12 * (1.0 + M.diagonal().max())
             A_F = A[:, free].tocsc()
             f = A_F.shape[1]
@@ -543,7 +547,10 @@ def ipm_solve(A, b, c, l, u,
                             _factor_spd(_scaled(A, _d) @ AT, _reg))
                     return _direct[0](rhs_y)
             if solveM is None:
-                ADAt = _scaled(A, d) @ AT
+                if device_ne is not None and mu > 1e-6:
+                    ADAt = device_ne.form(d)    # f64 GEMM on the card
+                else:
+                    ADAt = _scaled(A, d) @ AT
                 reg = 1e-12 * (1.0 + ADAt.diagonal().max())
                 reg_eff = reg
                 try:

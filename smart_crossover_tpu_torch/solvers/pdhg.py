@@ -30,8 +30,17 @@ import numpy as np
 import scipy.sparse as ssp
 import torch
 
-from smart_crossover_tpu_torch.config import device_float, resolve_device
-from smart_crossover_tpu_torch.ops.pdhg_chunk import halpern_chunk, pdhg_chunk
+from smart_crossover_tpu_torch.config import (
+    device_float,
+    resolve_device,
+    use_kernel,
+)
+from smart_crossover_tpu_torch.ops.pdhg_chunk import (
+    halpern_chunk,
+    halpern_chunk_plain,
+    pdhg_chunk,
+    pdhg_chunk_plain,
+)
 from smart_crossover_tpu_torch.ops.pdhg_sparse import (
     CSROperator,
     sparse_halpern_chunk,
@@ -114,12 +123,13 @@ def _omega_update(restart, cand_x, cand_y, x_lr, y_lr, omega):
 
 
 def _pdhg_core(A, b, c, l, u, is_eq, opnorm, x0, y0, max_iters: int,
-               check_every: int, restart_period: int, tol: float):
+               check_every: int, restart_period: int, tol: float,
+               plain: bool = False):
     """Core loop with PDLP-style adaptive restarts and primal weight (see
     the JAX ``_pdhg_core``).  The chunk gets the GLOBAL iteration count as
-    its schedule index.  A is a dense tensor (the chunk kernel) or a
-    sparse operator (``sparse_pdhg_chunk``).  Returns (x, y, iters,
-    converged)."""
+    its schedule index.  A is a dense tensor (the chunk kernel, or with
+    ``plain`` its plain version) or a sparse operator
+    (``sparse_pdhg_chunk``).  Returns (x, y, iters, converged)."""
     zero = torch.zeros((), dtype=A.dtype, device=A.device)
     inf = torch.full((), float("inf"), dtype=A.dtype, device=A.device)
     bscale = 1.0 + torch.linalg.norm(b)
@@ -136,9 +146,10 @@ def _pdhg_core(A, b, c, l, u, is_eq, opnorm, x0, y0, max_iters: int,
     omega = torch.ones((), dtype=A.dtype, device=A.device)
     eta = 0.9 / opnorm
     done = torch.zeros((), dtype=torch.bool, device=A.device)
+    chunk_fn = pdhg_chunk_plain if plain else pdhg_chunk
     while it < max_iters:
         if isinstance(A, torch.Tensor):
-            x, y, Ax, xs, ys, wsum, eta = pdhg_chunk(
+            x, y, Ax, xs, ys, wsum, eta = chunk_fn(
                 A, b, c, l, u, eqf, x, y, Ax, xs, ys, wsum, eta, omega, it,
                 opnorm, chunk=check_every)
         else:
@@ -194,12 +205,13 @@ def _pdhg_core(A, b, c, l, u, is_eq, opnorm, x0, y0, max_iters: int,
 
 def _pdhg_core_halpern(A, b, c, l, u, is_eq, opnorm, x0, y0,
                        max_iters: int, check_every: int,
-                       restart_period: int, tol: float):
+                       restart_period: int, tol: float, plain: bool = False):
     """Restarted reflected-Halpern PDHG (r2HPDHG; see the JAX
     ``_pdhg_core_halpern``).  The chunk gets the iterations since the last
     restart (cnt) as its Halpern index; the anchors move only at a
     restart.  A is a dense tensor (the chunk kernel) or a sparse operator
-    (``sparse_halpern_chunk``).  Returns (x, y, iters, converged)."""
+    (``sparse_halpern_chunk``); ``plain`` as for ``_pdhg_core``.  Returns
+    (x, y, iters, converged)."""
     inf = torch.full((), float("inf"), dtype=A.dtype, device=A.device)
     bscale = 1.0 + torch.linalg.norm(b)
     cscale = 1.0 + torch.linalg.norm(c)
@@ -215,11 +227,12 @@ def _pdhg_core_halpern(A, b, c, l, u, is_eq, opnorm, x0, y0,
     best_x, best_y = x0, y0
     omega = torch.ones((), dtype=A.dtype, device=A.device)
     done = torch.zeros((), dtype=torch.bool, device=A.device)
+    chunk_fn = halpern_chunk_plain if plain else halpern_chunk
     while it < max_iters:
         if isinstance(A, torch.Tensor):
-            x, y, Ax, _ = halpern_chunk(A, b, c, l, u, eqf, x, y, Ax, xa, ya,
-                                        Axa, omega, cnt.to(A.dtype), step,
-                                        chunk=check_every)
+            x, y, Ax, _ = chunk_fn(A, b, c, l, u, eqf, x, y, Ax, xa, ya,
+                                   Axa, omega, cnt.to(A.dtype), step,
+                                   chunk=check_every)
         else:
             x, y, Ax, _ = sparse_halpern_chunk(
                 A, b, c, l, u, is_eq, x, y, Ax, xa, ya, Axa, omega,
@@ -577,7 +590,8 @@ def pdhg_solve(A, b, c, l, u, sense=None,
                restart_period: int = 200,
                x0=None, y0=None, rescale: bool = True,
                polish: bool = True,
-               mode: str = "adaptive",
+               use_pallas: bool | None = None,
+               mode: str = "adaptive", *,
                device=None) -> PDHGResult:
     """Solve an LP with restarted PDHG (Ruiz-equilibrated by default).
 
@@ -587,6 +601,10 @@ def pdhg_solve(A, b, c, l, u, sense=None,
         sense: length-m array of '='/'<' (None = all equality).
         mode: 'adaptive' (PDLP adaptive step sizes + averaging restarts)
             or 'halpern' (restarted reflected-Halpern acceleration).
+        use_pallas: on a dense A, the choice between the chunk kernel and
+            its plain version (``config.use_kernel``): None takes the
+            kernel on a CUDA card, True raises elsewhere, False runs the
+            plain version.  A sparse A has no kernel and ignores it.
         device: where the iterations run (default: A's device if A is a
             tensor, else the CUDA card; without one that default raises).
             On CUDA the iterations run in float32: on a dense A every
@@ -605,6 +623,7 @@ def pdhg_solve(A, b, c, l, u, sense=None,
         raise ValueError(f"pdhg_solve: unknown mode {mode!r}")
     dev = resolve_device(device, A)
     A_coo = _host_sparse(A)
+    plain = A_coo is None and not use_kernel(use_pallas, dev)
     A_in = A_coo if A_coo is not None else _host(A)
     b, c, l, u, x0, y0 = (_host(v) for v in (b, c, l, u, x0, y0))
     dtype = device_float(dev, torch.float32 if A_in.dtype == np.float32
@@ -670,7 +689,7 @@ def pdhg_solve(A, b, c, l, u, sense=None,
         At = dev_t(A_np)
         core = _pdhg_core_halpern if mode == "halpern" else _pdhg_core
         x, y, iters, done = core(At, b, c, l, u, is_eq, estimate_opnorm(At),
-                                 x0, y0, **core_kw)
+                                 x0, y0, plain=plain, **core_kw)
         x = x.double().cpu().numpy()
         y = y.double().cpu().numpy()
         A_host = ssp.csr_matrix(At.double().cpu().numpy())
@@ -711,7 +730,7 @@ def pdhg_solve(A, b, c, l, u, sense=None,
 
 def pdhg_general_lp(lp, tol: float = 1e-6, max_iters: int = 100_000,
                     x0=None, y0=None, sparse: bool | None = None,
-                    mode: str = "adaptive", device=None) -> PDHGResult:
+                    mode: str = "adaptive", *, device=None) -> PDHGResult:
     """PDHG on a GeneralLP.  ``sparse=True`` keeps A sparse (the JAX
     package's BCOO route: a CSR operator on the card); the default picks
     sparse for big, sparse instances (m n > 1e6 and nnz < 0.1 m n), else

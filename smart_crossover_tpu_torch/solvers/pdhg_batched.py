@@ -14,8 +14,9 @@ Port of ``smart_crossover_tpu/solvers/pdhg_batched.py``.  Equality form
   ``ops/pdhg_cluster.py`` plans the layout); on a CPU tensor the plain
   version.  The JAX package took the
   Pallas kernel only when asked (``use_pallas``, ``block_b``); the port
-  picks the route by device and has neither argument, nor the TPU's VMEM
-  gate ``batched_pdhg_pallas_ok``.
+  reads ``use_pallas`` as its choice between the kernel and the plain
+  version (``config.use_kernel``: by default the kernel on a card), takes
+  ``block_b`` as a no-op, and has no VMEM gate ``batched_pdhg_pallas_ok``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from smart_crossover_tpu_torch import _build
 from smart_crossover_tpu_torch.config import (
-    SMEM_PER_BLOCK, resolve_device, to_device)
+    SMEM_PER_BLOCK, resolve_device, to_device, use_kernel)
 from smart_crossover_tpu_torch.ops.pdhg_cluster import (
     ADAPTIVE,
     cluster_plan_on_card,
@@ -124,11 +125,17 @@ def pdhg_batched_cuda(A, b, c, l, u, opnorm, iters: int, *,
     return x, y, xa, ya
 
 
-def pdhg_dense_batched(A, b, c, l, u, iters: int = 2000, device=None):
+def pdhg_dense_batched(A, b, c, l, u, iters: int = 2000,
+                       use_pallas: bool | None = None,
+                       block_b: int | None = None, *, device=None):
     """Fleet PDHG warm starts: (B, m, n) equality-form LPs.
 
     Args:
         A: (B, m, n); b: (B, m); c, l, u: (B, n), numpy arrays or tensors.
+        use_pallas: the kernel (None on a card, or True) or the plain
+            version (False, or None on the CPU); True without a card raises.
+        block_b: the JAX package's instances per Pallas grid step; a
+            no-op here (one cluster per instance).
         device: where to run (default: A's device if A is a tensor, else
             the CUDA card; without one that default raises).  CUDA runs the
             kernel in float32; ``device="cpu"`` runs the plain version in
@@ -141,15 +148,15 @@ def pdhg_dense_batched(A, b, c, l, u, iters: int = 2000, device=None):
     dev = resolve_device(device, A)
     A = to_device(A, dev)
     b, c, l, u = (to_device(v, dev, A.dtype) for v in (b, c, l, u))
+    if A.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"pdhg_dense_batched: no kernel for {A.device}")
     opnorm = _opnorms(A)
-    if A.is_cuda:
+    if use_kernel(use_pallas, A.device):
         x, y, xa, ya = pdhg_batched_cuda(A, b, c, l, u, opnorm, iters)
-    elif A.device.type == "cpu":
+    else:
         x0 = torch.minimum(torch.maximum(torch.zeros_like(c), l), u)
         y0 = torch.zeros_like(b)
         x, y, xa, ya = pdhg_fixed_batched_plain(A, b, c, l, u, opnorm,
                                                 x0, y0, iters)
-    else:
-        raise ValueError(f"pdhg_dense_batched: no kernel for {A.device}")
     return {"x": x, "y": y, "x_avg": xa, "y_avg": ya,
             "opnorm": opnorm.cpu().numpy()}

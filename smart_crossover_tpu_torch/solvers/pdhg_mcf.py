@@ -49,7 +49,7 @@ def _power_opnorm(op, v, iters: int = 30):
 def pdhg_mcf_device(mcf, tol: float = 1e-4, max_iters: int = 5000,
                     mode: str = "halpern", dtype=None,
                     check_every: int = 250, restart_period: int = 500,
-                    x0=None, y0=None, device=None):
+                    x0=None, y0=None, *, device=None):
     """First-order warm-start engine for MCF on the card.
 
     ``mode``: 'halpern' (restarted reflected Halpern, the default) or

@@ -123,7 +123,7 @@ def sinkhorn_plan(s, d, M, reg, num_iters: int = 1000,
 
 
 def sinkhorn(ot, reg: float | None = None, num_iters: int = 1000,
-             relative_reg: bool = True, round_plan: bool = True,
+             relative_reg: bool = True, round_plan: bool = True, *,
              device=None) -> np.ndarray:
     """Sinkhorn warm start of one ``OptTransport``, through the fused kernel
     (port of ``smart_crossover_tpu/solvers/sinkhorn.py:152``).

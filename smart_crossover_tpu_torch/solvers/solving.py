@@ -122,7 +122,7 @@ def solve_lp(lp: Union[GeneralLP, StandardLP],
              settings: SolverSettings | None = None,
              warm_start_basis: Optional[Basis] = None,
              warm_start_solution: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-             device=None) -> Output:
+             *, device=None) -> Output:
     """Solve an LP (signature parity with reference solving.py:71-94).
     ``device`` goes to the first-order route only (the CUDA card by
     default); the host methods ignore it."""
@@ -481,7 +481,7 @@ def solve_mcf(mcf: MinCostFlow,
               solver: str = "JAX",
               method: str = "default",
               settings: SolverSettings | None = None,
-              warm_start_basis: Optional[Basis] = None,
+              warm_start_basis: Optional[Basis] = None, *,
               device=None) -> Output:
     """Solve a min-cost-flow problem (parity with reference solving.py:97-113).
     ``device`` goes to 'first_order' (PDHG on the sparse incidence
@@ -566,7 +566,7 @@ def solve_ot(ot: OptTransport,
              solver: str = "JAX",
              method: str = "default",
              settings: SolverSettings | None = None,
-             warm_start_basis: Optional[Basis] = None,
+             warm_start_basis: Optional[Basis] = None, *,
              device=None) -> Output:
     """Solve an optimal transport problem (parity with solving.py:116-133).
     ``device`` goes to 'sinkhorn', 'device_simplex' and the MCF method

@@ -19,8 +19,8 @@ from smart_crossover_tpu_torch.ops import transport_simplex_mega as tsm
 from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
     mega_setup,
     rebuild_plan,
-    transport_simplex_mega,
     transport_simplex_mega_plain,
+    transport_simplex_mega_state,
 )
 from smart_crossover_tpu_torch.network_methods.certify import (
     certify_ot_basis_batch,
@@ -225,7 +225,8 @@ def test_mega_kernel_matches_plain(cuda, start, shape, layout, C):
     st = (_tnet_state if start == "tnet" else _nw_state)(*shape, seed=43)
     budget = _budget(S, D, C, layout)
     n0 = _build.kernel_launch_counts()["transport_simplex_mega"]
-    k = transport_simplex_mega(st, max_pivots=5000, smem_budget=budget)
+    k = transport_simplex_mega_state(st, max_pivots=5000,
+                                     smem_budget=budget)
     torch.cuda.synchronize()
     assert _build.kernel_launch_counts()["transport_simplex_mega"] == n0 + 1
     plan = tsm.LAST_LAUNCH
@@ -245,7 +246,7 @@ def test_mega_kernel_raises_beyond_its_cap(cuda):
     V = tsm.max_kernel_nodes() + 1
     st = _nw_state(1, 2, V - 2, seed=46)
     with pytest.raises(ValueError, match="shared-memory limit"):
-        transport_simplex_mega(st)
+        transport_simplex_mega_state(st)
 
 
 def test_kernels_are_deterministic(cuda):
@@ -263,12 +264,12 @@ def test_kernels_are_deterministic(cuda):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
     X0 = batched_tnet(s, d, M, reg=0.005, sinkhorn_iters=200)[0]
     st = mega_setup(X0, boruvka_bipartite_mst((X0 > 1e-12).float()), M)
-    a = transport_simplex_mega(st)
-    b = transport_simplex_mega(st)
+    a = transport_simplex_mega_state(st)
+    b = transport_simplex_mega_state(st)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     st = _nw_state(16, 40, 61, seed=45)        # a cluster of 8 per instance
-    a = transport_simplex_mega(st)
-    b = transport_simplex_mega(st)
+    a = transport_simplex_mega_state(st)
+    b = transport_simplex_mega_state(st)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
@@ -664,8 +665,8 @@ def test_lp_paths_reach_exact_vertices_on_card(cuda):
     bf, cf = np.stack([b, b[::-1]]), np.stack([c, c])
     _build.reset_kernel_launch_counts()
     out = batched_lp_crossover(Af, bf, cf, np.stack([l, l]),
-                               np.stack([u, u]), pdhg_iters=2000,
-                               device=cuda)
+                               np.stack([u, u]), warm_engine="pdhg",
+                               pdhg_iters=2000, device=cuda)
     assert _build.kernel_launch_counts()["pdhg_batched"] == 1
     assert out["optimal"].all()
     np.testing.assert_allclose(out["obj"], [ref, ref], rtol=1e-8)
@@ -718,3 +719,92 @@ def test_sparse_first_order_on_card(cuda, mode):
     assert res.status == "OPTIMAL" and np.isfinite(res.x).all()
     counts = _build.kernel_launch_counts()
     assert counts["pdhg_chunk"] == counts["halpern_chunk"] == 0
+
+
+def _ipm_fleet(B, m, n, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, m, n))
+    b = np.einsum("bmn,bn->bm", A, rng.uniform(0.2, 0.8, (B, n)))
+    return A, b, rng.standard_normal((B, n)), np.zeros((B, n)), \
+        np.ones((B, n))
+
+
+def test_ipm_dense_batched_on_card_matches_cpu(cuda):
+    """The batched IPM in float32 on the card stops at its mu_exit near
+    the float64 CPU run's point: objectives within 1e-3 relative, x within
+    1e-2 (float32 Cholesky at cond ~ 1/mu)."""
+    from smart_crossover_tpu_torch.solvers.ipm_batched import (
+        ipm_dense_batched,
+    )
+
+    args = _ipm_fleet(8, 16, 48, seed=31)
+    got = ipm_dense_batched(*args, tol=1e-5, max_iters=60)
+    want = ipm_dense_batched(*args, tol=1e-5, max_iters=60, device="cpu")
+    assert got["x"].is_cuda and got["x"].dtype == torch.float32
+    assert bool(torch.isfinite(got["x"]).all())
+    go, wo = got["obj_val"].double().cpu(), want["obj_val"]
+    assert ((go - wo).abs() <= 1e-3 * (1 + wo.abs())).all()
+    assert (got["x"].double().cpu() - want["x"]).abs().max() <= 1e-2
+    assert (got["iters"].cpu() > 0).all()
+
+
+def test_ipm_fleet_on_card_reaches_optimal(cuda):
+    from scipy.optimize import linprog
+
+    from smart_crossover_tpu_torch import ipm_fleet
+
+    A, b, c, l, u = _ipm_fleet(6, 8, 20, seed=32)
+    res = ipm_fleet(A, b, c, l, u, tol=1e-8)
+    assert res.status == ["OPTIMAL"] * 6
+    for i in range(6):
+        ref = linprog(c[i], A_eq=A[i], b_eq=b[i], bounds=(0, 1),
+                      method="highs")
+        assert abs(res.obj[i] - ref.fun) <= 1e-7
+
+
+def test_ne_offload_form_on_card(cuda, monkeypatch):
+    import scipy.sparse as ssp
+
+    from smart_crossover_tpu_torch.solvers import ne_offload
+
+    A = ssp.random(1100, 3000, density=0.02, random_state=3, format="csr")
+    monkeypatch.delenv("SCX_NE_OFFLOAD", raising=False)
+    assert ne_offload.maybe_device_ne(A) is None
+    monkeypatch.setenv("SCX_NE_OFFLOAD", "1")
+    ne = ne_offload.maybe_device_ne(A)
+    assert ne is not None and ne._A.is_cuda and ne._A.dtype == torch.float64
+    d = np.random.default_rng(4).uniform(0.1, 10.0, 3000)
+    Ad = np.asarray(A.todense())
+    want = (Ad * d) @ Ad.T
+    got = ne.form(d)
+    assert got.dtype == np.float64 and ne.forms == 1
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
+
+
+def test_ipm_leaves_tf32_off_inside(cuda, monkeypatch):
+    """With the caller's TF32 on, the IPM's products still run in full
+    float32 (seen at its Cholesky), and the caller's setting comes back."""
+    from smart_crossover_tpu_torch.solvers.ipm_batched import (
+        ipm_dense_batched,
+    )
+
+    seen = []
+    chol = torch.linalg.cholesky_ex
+
+    def spy(M, *a, **k):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return chol(M, *a, **k)
+
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", spy)
+    prev = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        args = _ipm_fleet(4, 64, 256, seed=33)
+        tf = ipm_dense_batched(*args, tol=1e-5, max_iters=60)
+        assert seen and not any(seen)
+        assert torch.backends.cuda.matmul.allow_tf32
+        torch.set_float32_matmul_precision("highest")
+        full = ipm_dense_batched(*args, tol=1e-5, max_iters=60)
+        assert torch.equal(tf["x"], full["x"])
+    finally:
+        torch.set_float32_matmul_precision(prev)

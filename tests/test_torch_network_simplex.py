@@ -153,7 +153,7 @@ def test_failed_native_build_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(native, "SOURCE", src)
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
-        native.build(timeout=120)
+        native.build_library(timeout=120)
     assert list((tmp_path / "build").iterdir()) == []
 
 
@@ -162,7 +162,8 @@ def test_concurrent_native_builds(tmp_path, monkeypatch):
     library into place: one library, no temporary file left."""
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     with cf.ThreadPoolExecutor(3) as pool:
-        paths = list(pool.map(lambda _: native.build(timeout=240), range(3)))
+        paths = list(pool.map(lambda _: native.build_library(timeout=240),
+                              range(3)))
     assert len(set(paths)) == 1
     assert [p.name for p in tmp_path.iterdir()] == [paths[0].name]
     assert paths[0].name.startswith("libscx_netsimplex_")

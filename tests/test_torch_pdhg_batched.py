@@ -70,18 +70,12 @@ def test_batched_lp_crossover_matches_jax_and_highs(rng):
 
 def test_batched_lp_crossover_takes_tensors(rng):
     A, b, c, l, u = make_fleet(rng, 2, 6, 20)
-    a = batched_lp_crossover(A, b, c, l, u, pdhg_iters=500, device="cpu")
+    a = batched_lp_crossover(A, b, c, l, u, warm_engine="pdhg",
+                             pdhg_iters=500, device="cpu")
     t = batched_lp_crossover(*(torch.from_numpy(v) for v in (A, b, c, l, u)),
-                             pdhg_iters=500)
+                             warm_engine="pdhg", pdhg_iters=500)
     np.testing.assert_array_equal(a["x_bar"], t["x_bar"])
     np.testing.assert_array_equal(a["obj"], t["obj"])
-
-
-@pytest.mark.parametrize("engine", ["ipm", "ipm_refined"])
-def test_ipm_engines_not_ported(rng, engine):
-    A, b, c, l, u = make_fleet(rng, 1, 3, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.12"):
-        batched_lp_crossover(A, b, c, l, u, warm_engine=engine)
 
 
 def test_pdhg_dense_batched_refuses_other_devices():

@@ -17,10 +17,10 @@ from smart_crossover_tpu_torch.ops.sinkhorn_fused import (
     sinkhorn_plan_fused,
     sinkhorn_plan_fused_plain,
 )
-from smart_crossover_tpu_torch.solvers import sinkhorn as tsk
 
-# the JAX package's solvers/__init__ re-exports a function named sinkhorn
+# each package's solvers/__init__ re-exports a function named sinkhorn
 jsk = importlib.import_module("smart_crossover_tpu.solvers.sinkhorn")
+tsk = importlib.import_module("smart_crossover_tpu_torch.solvers.sinkhorn")
 
 SHAPES = [(2, 13, 29), (3, 24, 40), (2, 48, 24)]
 

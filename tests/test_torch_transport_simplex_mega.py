@@ -14,6 +14,7 @@ from smart_crossover_tpu.ops.transport_simplex_anc import (
 )
 from smart_crossover_tpu.ops.transport_simplex_mega import (
     batched_transport_simplex_mega as j_mega,
+    transport_simplex_mega as j_mega_single,
 )
 from smart_crossover_tpu.ops.transport_simplex_parent import (
     build_parent_from_mask as j_parent,
@@ -25,6 +26,7 @@ from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
     mega_setup,
     transport_simplex_mega,
     transport_simplex_mega_plain,
+    transport_simplex_mega_state,
 )
 
 
@@ -116,10 +118,36 @@ def test_wrapper_cpu_takes_plain_version():
     X, Bm, M = _batch(13, 29, B=2, seed0=5)
     st = mega_setup(*(torch.from_numpy(a) for a in (X, Bm, M)))
     _build.reset_kernel_launch_counts()
-    got = transport_simplex_mega(st, max_pivots=500)
+    got = transport_simplex_mega_state(st, max_pivots=500)
     want = transport_simplex_mega_plain(st, max_pivots=500)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert _build.kernel_launch_counts()["transport_simplex_mega"] == 0
     # the state handed in is left untouched
     assert torch.equal(st["mask"], torch.from_numpy(Bm))
+
+
+def _marginals(X):
+    return X.sum(-1).astype(np.float64), X.sum(-2).astype(np.float64)
+
+
+def test_jax_positional_order():
+    """ROADMAP 3.8: the JAX positional order (X, Bm, M, s, d) on a 6x6
+    northwest-corner basis, batched and single-instance, gives the JAX
+    package's pivots, basis and plan."""
+    X, Bm, M = _batch(6, 6, B=2, seed0=11)
+    s, d = _marginals(X)
+    jX, jB, jp, jo = j_mega(X, Bm, M, s, d)
+    tX, tB, tp, to = batched_transport_simplex_mega(
+        *(torch.from_numpy(a) for a in (X, Bm, M, s, d)))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(tB.numpy(), np.asarray(jB))
+    assert to.all() and np.asarray(jo).all()
+    np.testing.assert_allclose(tX.numpy(), np.asarray(jX), atol=1e-6)
+    one = transport_simplex_mega(*(torch.from_numpy(a[0])
+                                   for a in (X, Bm, M, s, d)))
+    want = j_mega_single(X[0], Bm[0], M[0], s[0], d[0])
+    assert int(one[2]) == int(want[2]) and bool(one[3])
+    np.testing.assert_array_equal(one[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_allclose(one[0].numpy(), np.asarray(want[0]),
+                               atol=1e-6)
