@@ -103,12 +103,31 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           'parent' (K1 once, K2 never) and with 'mega' (K1 and K2 once
           each), both OPTIMAL and equal to main_16x784x784's certified
           objective to 1e-9;
+  sharded the multi-device layer at world size 1 on NCCL (one card), each
+          sharded call held against the port's unsharded counterpart:
+          sharded_batched_tnet_exact_device at 64 x 256^2 with 'mega' (K1
+          and K2 once) and 'parent' (K1 once, K2 never) and
+          batched_tnet_exact(mesh=) (K1 once), every instance certified at
+          main_64x256x256's objectives to 1e-9; sharded_tnet_single on
+          instance 0 of the 784^2 batch (a basic feasible flow whose
+          support is a spanning forest, the push under its cap, its push
+          iterations, seconds and gap to the certified objective);
+          sharded_sinkhorn_plan there (1000 iterations) against K1's plain
+          version; sharded_projector at 256 x 8192 against
+          apply_projector_torch (ms per CG iteration); sharded_pdhg on the
+          single LP (card float32 vs CPU float64 over 1000 iterations, then
+          10,000 timed); the sharded ranking at GOTO-128 from the
+          pdhg_mcf_device point; ipm_fleet(mesh=) at 64 x 256 x 512 against
+          the unsharded call; lp_scenario_sweep(mesh=) on 32 RHS scenarios
+          (HiGHS to 1e-6); mcf_scenario_sweep on 8 GOTO-128 demand
+          scenarios (HiGHS to 1e-9, solved in worker processes); the
+          multihost entry point in a subprocess at one process;
 then the card's nvidia-smi line, the kernels' summary (each kernel's
 median ms, launches on the main path, the plain version's ms, and its
 bound: the largest of the operations these inputs need at the card's
 float32 peak, the bytes it must move at the HBM rate and, for K1, the
-exps at the MUFU rate, 16 per clock per SM at the card's max SM clock)
-and, last,
+exps at the MUFU rate, 16 per clock per SM at the card's max SM clock;
+K1 and K2 add their launches on the sharded routes) and, last,
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.  It imports nothing of JAX.
 """
@@ -742,7 +761,7 @@ def phase_goto(scx):
             f"cnet_mcf from pdhg_mcf_device: {outw.status}, {w_rel}")
     require(bool(np.isfinite(xw).all() and np.isfinite(yw).all()),
             "pdhg_mcf_device output not finite")
-    return counts, counts_w
+    return counts, counts_w, xw
 
 
 def phase_goto17(scx):
@@ -1864,6 +1883,307 @@ def phase_ipm_device(scx, fleet_rec, big=IPM_BIG, ipm_fleet_shape=IPM_FLEET,
     return rec
 
 
+# ------------------------------------------------------ multi-device layer
+
+SHARDED_PDHG_RTOL = 1e-3    # sharded_pdhg on the card (float32) against
+#                             the same call on the CPU in float64, 1000 it.,
+#                             relative to 1 + max |cpu value|
+RANK_RTOL = 1e-6            # sharded flow indicators vs mcf_flow_indicators
+MARGINAL_RTOL = 1e-4        # the sharded TNET vertex's float32 marginals
+IPM_MESH_ATOL = 1e-6        # ipm_fleet(mesh=) against the unsharded call
+SWEEP_HIGHS_RTOL = 1e-6     # lp_scenario_sweep vs HiGHS (the JAX test's)
+
+
+def _highs_mcf(args):
+    """HiGHS's objective of one MCF scenario (run in a worker process)."""
+    from scipy.optimize import linprog
+
+    c, A, b, u = args
+    ref = linprog(c, A_eq=A, b_eq=b, bounds=np.stack([np.zeros(len(u)), u],
+                                                    1), method="highs")
+    return float(ref.fun) if ref.status == 0 else None
+
+
+def is_forest(rows, cols, S):
+    """Whether the bipartite edges (rows[k], S + cols[k]) form no cycle."""
+    parent = list(range(S + int(max(cols, default=0)) + 1))
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    for i, j in zip(rows.tolist(), cols.tolist()):
+        a, b = find(i), find(S + j)
+        if a == b:
+            return False
+        parent[a] = b
+    return True
+
+
+def _launched(scx, fn):
+    """fn() with the kernel counts set to 0 just before and read just
+    after; (result, counts, synced seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    scx.reset_kernel_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, scx.kernel_launch_counts(), time.perf_counter() - t0
+
+
+def phase_sharded(scx, cobj, cobj7, goto_x=None):
+    """The multi-device layer at world size 1 on NCCL (one card), each
+    sharded call held against the port's unsharded counterpart on the
+    same inputs.  `cobj`, `cobj7` are main_64x256x256's and
+    main_16x784x784's certified objectives; `goto_x` the pdhg_mcf_device
+    point of network_crossover_goto128 (recomputed when None).  Returns
+    the K1/K2 launch counts of the batch-sharded OT routes."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    import bench
+    from smart_crossover_tpu_torch import parallel as P
+    from smart_crossover_tpu_torch.data.mcf_gen import goto_like_mcf
+    from smart_crossover_tpu_torch.ops.ranking import mcf_flow_indicators
+    from smart_crossover_tpu_torch.ops.sinkhorn_fused import (
+        sinkhorn_plan_fused_plain)
+    from smart_crossover_tpu_torch.solvers.ipm_fleet import ipm_fleet
+    from smart_crossover_tpu_torch.solvers.pdhg_mcf import pdhg_mcf_device
+    from smart_crossover_tpu_torch.solvers.projection import (
+        apply_projector_torch)
+
+    t_phase = time.perf_counter()
+    rec = {"phase": "sharded"}
+    # HiGHS on the MCF sweep's scenarios runs beside the card work
+    # demand scenarios: b moved towards the demand of a random flow in
+    # [0, u], feasible by convexity
+    mcf = goto_like_mcf(128, 128, extra_arc_factor=4, regular=True, seed=42)
+    K_MCF = 8
+    b_alt = mcf.A @ (np.random.default_rng(0).uniform(0, 1, mcf.n) * mcf.u)
+    b_sc = np.stack([(1 - 0.05 * k) * mcf.b + 0.05 * k * b_alt
+                     for k in range(K_MCF)])
+    pool = cf.ProcessPoolExecutor(
+        max_workers=min(K_MCF, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    highs_f = [pool.submit(_highs_mcf, (mcf.c, mcf.A, b, mcf.u))
+               for b in b_sc]
+    try:
+        mesh = P.make_mesh()
+        require(mesh.device.type == "cuda",
+                "the sharded phase's mesh is not on the card")
+        rec["world_size"] = dist.get_world_size()
+        rec["backend"] = str(dist.get_backend())
+        rec["mesh_shape"] = dict(mesh.shape)
+        counts = {}
+
+        # batch-sharded exact OT route at 64 x 256^2, K1 + K2 per rank
+        s64, d64, M64 = bench.make_batch(64, 256, 256, seed=0)
+        for engine in ("mega", "parent"):
+            out, cnt, secs = _launched(
+                scx, lambda: P.sharded_batched_tnet_exact_device(
+                    mesh, s64, d64, M64, reg=REG,
+                    sinkhorn_iters=SINKHORN_ITERS, max_pivots=MAX_PIVOTS,
+                    engine=engine))
+            certs = scx.certify_ot_basis_batch(out[5].cpu().numpy(), s64,
+                                               d64, M64)
+            obj = np.array([c.obj_val for c in certs])
+            rel = float(np.max(np.abs(obj - cobj) / np.abs(cobj)))
+            counts[f"exact_{engine}"] = cnt
+            rec[f"exact_device_{engine}_64x256x256"] = {
+                "n_certified": sum(c.ok for c in certs),
+                "all_optimal_device": bool(out[4].all()),
+                "max_rel_to_certified": rel, "seconds": secs,
+                "median_pivots": float(out[3].double().median()),
+                "launches": cnt}
+            require(all(c.ok for c in certs) and bool(out[4].all()),
+                    f"sharded exact ({engine}): not all certified")
+            require(rel <= EXACT_RTOL,
+                    f"sharded exact ({engine}) off main's certificates: {rel}")
+            require(cnt["sinkhorn_fused"] == 1
+                    and cnt["transport_simplex_mega"]
+                    == (1 if engine == "mega" else 0),
+                    f"sharded exact ({engine}) launches: {cnt}")
+        stats = {}
+        (X, obj, piv, opt), cnt, secs = _launched(
+            scx, lambda: P.batched_tnet_exact(
+                s64, d64, M64, reg=REG, sinkhorn_iters=SINKHORN_ITERS,
+                mesh=mesh, stats=stats))
+        rel = float(np.max(np.abs(obj - cobj) / np.abs(cobj)))
+        counts["tnet_exact_mesh"] = cnt
+        rec["batched_tnet_exact_mesh_64x256x256"] = {
+            "n_optimal": int(opt.sum()), "max_rel_to_certified": rel,
+            "seconds": secs, **stats, "launches": cnt}
+        require(bool(opt.all()) and rel <= EXACT_RTOL,
+                f"batched_tnet_exact(mesh=): {int(opt.sum())}/64, {rel}")
+        require(cnt["sinkhorn_fused"] == 1, f"tnet_exact(mesh=): {cnt}")
+
+        # one 784^2 instance, demand axis sharded
+        s7, d7, M7 = (a[0] for a in bench.make_batch(16, 784, 784, seed=1))
+        cap = 100_000
+        (X7, pushes), _, secs = _launched(
+            scx, lambda: P.sharded_tnet_single(mesh, s7, d7, M7,
+                                               push_iters_cap=cap))
+        rows, cols = np.nonzero(X7 > 0)
+        mrg = max(np.abs(X7.sum(1) - s7).max() / s7.max(),
+                  np.abs(X7.sum(0) - d7).max() / d7.max())
+        gap = float((X7 * M7).sum() - cobj7[0]) / abs(cobj7[0])
+        rec["tnet_single_784x784"] = {
+            "push_iters": pushes, "push_cap": cap, "seconds": secs,
+            "support": int(rows.size), "max_marginal_rel": float(mrg),
+            "min_flow": float(X7.min()), "gap_to_certified": gap}
+        require(bool(np.isfinite(X7).all()) and X7.shape == (784, 784),
+                "sharded_tnet_single output malformed")
+        require(mrg <= MARGINAL_RTOL and X7.min() >= 0.0,
+                f"sharded_tnet_single not feasible: {mrg}, {X7.min()}")
+        require(rows.size <= 784 + 784 - 1 and is_forest(rows, cols, 784),
+                "sharded_tnet_single support is not a spanning forest")
+        require(pushes < cap, "sharded_tnet_single push hit its cap")
+
+        # the sharded Sinkhorn plan against K1's plain version
+        reg7 = REG * float(M7.max())
+        plan, _, secs = _launched(scx, lambda: P.sharded_sinkhorn_plan(
+            mesh, s7, d7, M7, reg7, num_iters=SINKHORN_ITERS))
+        s_, d_, M_ = to_cuda(s7[None], d7[None], M7[None])
+        pp, _, _ = sinkhorn_plan_fused_plain(s_, d_, M_, reg7, SINKHORN_ITERS)
+        dplan = (plan - pp[0]).abs().max().item()
+        pmax = pp.abs().max().item()
+        rec["sinkhorn_plan_784x784"] = {
+            "iters": SINKHORN_ITERS, "reg": reg7, "max_abs_dplan": dplan,
+            "max_plan": pmax, "seconds": secs, "plan_rtol": K1_PLAN_RTOL}
+        require(dplan <= K1_PLAN_RTOL * pmax,
+                f"sharded Sinkhorn plan off K1's plain version: {dplan}")
+
+        # the projector at bench_projector's shape
+        rng = np.random.default_rng(0)
+        Y = rng.standard_normal((256, 8192))
+        v = rng.standard_normal(8192)
+        p_sh = P.sharded_projector(mesh, Y, v, tol=1e-6, max_iter=200)
+        p_1 = apply_projector_torch(Y, v, tol=1e-6, max_iter=200)
+        Yt, vt = to_cuda(Y, v)
+        dp = (p_sh - p_1).abs().max().item() / p_1.abs().max().item()
+        resid = ((Yt @ p_sh).norm() / (Yt @ vt).norm()).item()
+        _, cg_ms, _ = sync_time(lambda: P.sharded_projector(
+            mesh, Y, v, tol=0.0, max_iter=100), 3)
+        _, cg1_ms, _ = sync_time(lambda: apply_projector_torch(
+            Y, v, tol=0.0, max_iter=100), 3)
+        rec["projector_256x8192"] = {
+            "max_rel_to_unsharded": dp, "residual_rel": resid,
+            "ms_per_cg_iteration": cg_ms / 100,
+            "unsharded_ms_per_cg_iteration": cg1_ms / 100,
+            "rtol": PROJ_RTOL, "residual_max": PROJ_RESIDUAL}
+        require(dp <= PROJ_RTOL, f"sharded projector off the unsharded: {dp}")
+        require(resid <= PROJ_RESIDUAL, f"sharded projector residual {resid}")
+
+        # fixed-step PDHG on the single LP, card float32 vs CPU float64
+        A, b, c, l, u = lp_single(512, 2048, 7)
+        x32, y32 = P.sharded_pdhg(mesh, A, b, c, l, u, num_iters=1000)
+        cpu_mesh = P.make_mesh(device="cpu")
+        x64, y64 = P.sharded_pdhg(cpu_mesh, A, b, c, l, u, num_iters=1000)
+        dx = np.abs(x32 - x64).max() / (1 + np.abs(x64).max())
+        dy = np.abs(y32 - y64).max() / (1 + np.abs(y64).max())
+        (xl, _), _, secs = _launched(scx, lambda: P.sharded_pdhg(
+            mesh, A, b, c, l, u))
+        rec["pdhg_512x2048"] = {
+            "seed": 7, "x_rel_1000": float(dx), "y_rel_1000": float(dy),
+            "iters": 10_000, "seconds": secs, "ms_per_iteration": secs / 10,
+            "primal_residual_rel": float(np.linalg.norm(A @ xl - b)
+                                         / (1 + np.linalg.norm(b))),
+            "rtol": SHARDED_PDHG_RTOL}
+        require(max(dx, dy) <= SHARDED_PDHG_RTOL,
+                f"sharded_pdhg card vs CPU f64: {dx}, {dy}")
+        require(bool(np.isfinite(xl).all()), "sharded_pdhg not finite")
+
+        # MCF ranking at GOTO-128 from the pdhg_mcf_device point
+        if goto_x is None:
+            goto_x = pdhg_mcf_device(mcf, tol=1e-4, max_iters=5000)[0]
+        xg, ug = to_cuda(goto_x, mcf.u)
+        tg, hg = (torch.as_tensor(a, device=DEVICE) for a in (mcf.tails,
+                                                               mcf.heads))
+        ind = P.sharded_mcf_flow_indicators(mesh, goto_x, mcf.tails,
+                                            mcf.heads, mcf.u, mcf.m)
+        ind1 = mcf_flow_indicators(xg, tg, hg, ug, mcf.m)
+        drank = (ind - ind1).abs().max().item() / ind1.abs().max().item()
+        rec["ranking_goto128"] = {"arcs": mcf.n, "max_rel": drank,
+                                  "rtol": RANK_RTOL}
+        require(drank <= RANK_RTOL, f"sharded ranking off: {drank}")
+
+        # the fleet barrier's device stage and the LP scenario sweep
+        A, b, c, l, u = ipm_fleet_lps(*IPM_FLEET, seed=0)
+        f1, _, secs1 = _launched(scx, lambda: ipm_fleet(
+            A, b, c, l, u, refine=False, device=DEVICE))
+        fm, _, secs = _launched(scx, lambda: ipm_fleet(
+            A, b, c, l, u, refine=False, mesh=mesh))
+        dxf = float(max(np.abs(fm.x - f1.x).max(), np.abs(fm.y - f1.y).max()))
+        rec["ipm_fleet_mesh_64x256x512"] = {
+            "max_abs_diff": dxf, "seconds": secs, "unsharded_seconds": secs1,
+            "iters_equal": bool((fm.device_iters == f1.device_iters).all()),
+            "atol": IPM_MESH_ATOL}
+        require(bool((fm.device_iters == f1.device_iters).all())
+                and fm.status == f1.status and dxf <= IPM_MESH_ATOL,
+                f"ipm_fleet(mesh=) off the unsharded call: {dxf}")
+        A, b, c, l, u = lp_fleet(32, 64, 256, 5)
+        A0 = A[0]
+        xs = np.random.default_rng(5).uniform(0.1, 0.9, (32, 256))
+        bs = xs @ A0.T
+        sw, _, secs = _launched(scx, lambda: P.lp_scenario_sweep(
+            A0, bs[0], c[0], l[0], u[0], b_scenarios=bs, mesh=mesh))
+        ref = np.array([highs_obj(A0, bk, c[0], l[0], u[0]) for bk in bs])
+        rel = float(np.max(np.abs(sw["obj"] - ref) / (1 + np.abs(ref))))
+        rec["lp_scenario_sweep_32x64x256"] = {
+            "n_optimal": sw["status"].count("OPTIMAL"),
+            "max_rel_to_highs": rel, "seconds": secs,
+            "rtol": SWEEP_HIGHS_RTOL}
+        require(sw["status"] == ["OPTIMAL"] * 32 and rel <= SWEEP_HIGHS_RTOL,
+                f"lp_scenario_sweep(mesh=): {sw['status']}, {rel}")
+
+        # MCF demand scenarios on GOTO-128, warm chain, against HiGHS
+        t0 = time.perf_counter()
+        sweep = P.mcf_scenario_sweep(mcf, b_scenarios=b_sc, warm_chain=True)
+        sweep_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        refs = [f.result() for f in highs_f]
+        wait_s = time.perf_counter() - t0
+        require(None not in refs, "HiGHS failed on an MCF scenario")
+        rel = float(np.max(np.abs(sweep["obj"] - refs) / np.abs(refs)))
+        rec["mcf_scenario_sweep_goto128"] = {
+            "scenarios": K_MCF, "pivots": sweep["pivots"].tolist(),
+            "seconds": sweep_s, "highs_wait_s": wait_s,
+            "max_rel_to_highs": rel, "rtol": EXACT_RTOL}
+        require(sweep["status"] == ["OPTIMAL"] * K_MCF and rel <= EXACT_RTOL,
+                f"mcf_scenario_sweep: {sweep['status']}, {rel}")
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+    # the multi-process entry point, one process
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "smart_crossover_tpu_torch.parallel.multihost",
+         "--process-id", "0", "--num-processes", "1",
+         "--coordinator", f"localhost:{port}"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    rec["multihost"] = {"rc": r.returncode,
+                        "seconds": time.perf_counter() - t0,
+                        "stdout": r.stdout.strip().splitlines()[-3:]}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    require(r.returncode == 0 and "MULTIHOST_PASS proc=0 devices=1"
+            in r.stdout, f"multihost: rc {r.returncode}: {r.stderr[-600:]}")
+    dist.destroy_process_group()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1885,7 +2205,7 @@ def main() -> int:
         k["launches"] = counts[k["name"]]
         k["launches_784"] = counts7[k["name"]]
     nc_counts, k1_b1_ms, k1_b1_plain = phase_network_crossover(scx, cobj7[0])
-    goto_fo, goto_warm = phase_goto(scx)
+    goto_fo, goto_warm, goto_x = phase_goto(scx)
     goto17 = phase_goto17(scx)
     exact = phase_tnet_exact(scx, cobj)
     engines = phase_device_engines(scx, cobj, cobj7)
@@ -1930,6 +2250,10 @@ def main() -> int:
             ot_counts["device_simplex"][k["name"]]
     kernels[0]["launches_solve_ot_sinkhorn"] = \
         ot_counts["sinkhorn"]["sinkhorn_fused"]
+    sharded = phase_sharded(scx, cobj, cobj7, goto_x)
+    for k in kernels[:2]:
+        for route, cnt in sharded.items():
+            k[f"launches_sharded_{route}"] = cnt[k["name"]]
     # the sparse first-order route launches none of the dense PDHG kernels
     for k in kernels[2:]:
         k["launches_sparse_first_order"] = {

@@ -9,7 +9,9 @@ invariant under (M / eps, eps = 1)).  The pivot stage runs one of the
 device transportation-simplex engines: the in-kernel pivot loop ('mega',
 K2) or the batched tensor engines 'parent', 'anc', 'packed' and 'mask'
 (``ENGINES``); the host route cleans up with the native network simplex.
-The JAX package's sharded pipelines are not ported yet.
+The ``sharded_*`` functions split the batch over a mesh's 'batch' axis
+(``parallel/mesh.py``): each rank runs its slice through the single-device
+pipeline, kernels included, and the results are all-gathered.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from smart_crossover_tpu_torch.ops.transport_simplex_packed import (
 from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
     batched_transport_simplex_parent,
 )
+from smart_crossover_tpu_torch.parallel.mesh import BATCH_AXIS
 from smart_crossover_tpu_torch.solvers.network_simplex import network_simplex
 from smart_crossover_tpu_torch.solvers.sinkhorn import round_to_feasible
 
@@ -165,6 +168,40 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
     return X, obj, push, pivots, optimal, Bm
 
 
+def _batch_slice(mesh, *arrays):
+    """This rank's block of each array along the batch (leading) axis."""
+    lo, hi = mesh.slice(BATCH_AXIS, arrays[-1].shape[0])
+    return [a[lo:hi] for a in arrays]
+
+
+def sharded_batched_tnet(mesh, s, d, M, reg: float = 0.02,
+                         sinkhorn_iters: int = 200):
+    """``batched_tnet`` with the instance batch split over the mesh's
+    'batch' axis (B divisible by its width): each rank runs its instances
+    (the Sinkhorn kernel on a card) and the results are all-gathered.
+    Returns (X_vertex, push_iters, obj), full-batch tensors on the rank's
+    device."""
+    out = batched_tnet(*_batch_slice(mesh, s, d, M), reg=reg,
+                       sinkhorn_iters=sinkhorn_iters, device=mesh.device)
+    return tuple(mesh.gather(t, BATCH_AXIS) for t in out)
+
+
+def sharded_batched_tnet_exact_device(mesh, s, d, M, reg: float = 0.005,
+                                      sinkhorn_iters: int = 1000,
+                                      max_pivots: int = 5000,
+                                      engine: str = "mega"):
+    """``batched_tnet_exact_device`` with the batch split over the mesh's
+    'batch' axis: each rank runs the warm start and the pivot engine on
+    its instances (on a card the Sinkhorn kernel and, with 'mega', the
+    pivot-loop kernel, once per rank), with no cross-instance collective,
+    and the six outputs are all-gathered.  The default engine is 'mega',
+    as ``batched_tnet_exact_device``'s (the JAX package's: 'parent')."""
+    out = batched_tnet_exact_device(
+        *_batch_slice(mesh, s, d, M), reg=reg, sinkhorn_iters=sinkhorn_iters,
+        max_pivots=max_pivots, engine=engine, device=mesh.device)
+    return tuple(mesh.gather(t, BATCH_AXIS) for t in out)
+
+
 def _host64(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().to("cpu", torch.float64).numpy()
@@ -201,7 +238,9 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
 
     ``engine='auto'``: 'mega' where the pivot-loop kernel's layout
     (``transport_simplex_mega.cluster_plan``) fits the shape, else 'host'.
-    This replaces the JAX package's TPU-only rule.
+    This replaces the JAX package's TPU-only rule.  With a ``mesh`` every
+    engine takes the host route, as in the JAX package, its device stage
+    ``sharded_batched_tnet`` on the mesh's device (``device`` unused).
 
     Both routes rescale d to sum(s) on the host (f32 mass drift) before
     the exact solves, so the returned vertices are exact f64 whatever the
@@ -212,12 +251,11 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
 
     Returns (X, obj, pivots, optimal) as numpy arrays.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP 1.15: "
-                                  "multi-device pipelines)")
     if engine not in ("auto", "host"):
         engine = _engine(engine)
     B, S, D = M.shape
+    if mesh is not None:
+        engine = "host"
     if engine == "auto":
         try:
             cluster_plan(B, S, D)
@@ -261,8 +299,12 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
         return Xn, obj_n, piv_n, ok
 
     t0 = time.perf_counter()
-    X, _, _ = batched_tnet(s, d, M, reg=reg, sinkhorn_iters=sinkhorn_iters,
-                           device=device)
+    if mesh is not None:
+        X, _, _ = sharded_batched_tnet(mesh, s, d, M, reg=reg,
+                                       sinkhorn_iters=sinkhorn_iters)
+    else:
+        X, _, _ = batched_tnet(s, d, M, reg=reg,
+                               sinkhorn_iters=sinkhorn_iters, device=device)
     X = X.to("cpu", torch.float64).numpy()
     stats["device_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -51,14 +51,15 @@ def _dot(a, b):
     return (a * b).sum(-1)
 
 
-def _max_step(v, dv):
+def _max_step(v, dv, red=None):
     neg = dv < 0
-    r = torch.where(neg, -v / torch.where(neg, dv, -1.0), torch.inf)
-    return torch.clamp(r.amin(-1), max=1.0)
+    r = torch.where(neg, -v / torch.where(neg, dv, -1.0), torch.inf).amin(-1)
+    return torch.clamp(r if red is None else red(r, "min"), max=1.0)
 
 
 def ipm_dense_batched(A, b, c, l, u, tol: float = 1e-8, max_iters: int = 50,
-                      mu_exit: float | None = None, *, device=None):
+                      mu_exit: float | None = None, *, device=None,
+                      col_reduce=None):
     """Dense IPM over a batch: A (B, m, n), b (B, m), c, l, u (B, n).
 
     Bounds may be +/-inf (fully free columns get a wide box).  ``mu_exit``
@@ -70,14 +71,42 @@ def ipm_dense_batched(A, b, c, l, u, tol: float = 1e-8, max_iters: int = 50,
     tensor, else the CUDA card (float32 there, the input's float64 on the
     CPU).
 
+    ``col_reduce``: for A split by columns over ranks (``ipm_fleet``'s
+    mesh column branch), a function (tensor, "sum" | "min") -> the tensor
+    all-reduced over the ranks holding A's column blocks.  Each rank then
+    passes its (B, m, n_loc) block of A and (B, n_loc) blocks of c, l, u;
+    every reduction over n goes through the function (A x and A D A'
+    summed, dot products and norms over n summed, the ratio tests' minima),
+    so the m-space state and the loop's decisions are alike on every rank.
+    None (A whole) computes exactly as without it.
+
     Returns a dict of tensors on the device: x, y, zl, zu, obj_val (B,),
-    iters (B,) and converged (B,) bool.
+    iters (B,) and converged (B,) bool; x, zl, zu are a rank's blocks
+    under ``col_reduce``.
     """
     dev = resolve_device(device, A)
     A = to_device(A, dev)
     dtype = A.dtype
     b, c, l, u = (to_device(v, dev, dtype) for v in (b, c, l, u))
     B, m, n = A.shape
+    red = col_reduce
+    if red is not None:
+        n = int(red(torch.tensor(n, device=dev), "sum"))
+
+    def nsum(t):
+        """A partial sum over n, completed across the column blocks."""
+        return t if red is None else red(t, "sum")
+
+    def ndot(a, b_):
+        return nsum(_dot(a, b_))
+
+    def nnorm(v):
+        if red is None:
+            return torch.linalg.norm(v, dim=-1)
+        return torch.sqrt(red((v * v).sum(-1), "sum"))
+
+    def nstep(v, dv):
+        return _max_step(v, dv, red)
     f64 = dtype == torch.float64
     if mu_exit is None:
         mu_exit = 0.0 if f64 else 1e-7
@@ -98,7 +127,7 @@ def ipm_dense_batched(A, b, c, l, u, tol: float = 1e-8, max_iters: int = 50,
     mu_prev = torch.full((B,), torch.inf, dtype=dtype, device=dev)
 
     bnorm = 1.0 + torch.linalg.norm(b, dim=-1)
-    cnorm = 1.0 + torch.linalg.norm(c, dim=-1)
+    cnorm = 1.0 + nnorm(c)
     reg_base = 1e-10 if f64 else 1e-6
     floor = 1e-16 if f64 else 1e-8
     AT = A.transpose(1, 2)
@@ -106,25 +135,25 @@ def ipm_dense_batched(A, b, c, l, u, tol: float = 1e-8, max_iters: int = 50,
 
     def converged(p, q, zl, zu, y):
         x = l + p
-        pres = torch.linalg.norm(b - _mv(A, x), dim=-1) / bnorm
-        dres = torch.linalg.norm(c - _mv(AT, y) - zl + zu, dim=-1) / cnorm
-        pobj = _dot(c, x)
-        dobj = _dot(b, y) + _dot(l, zl) - _dot(u, zu)
+        pres = torch.linalg.norm(b - nsum(_mv(A, x)), dim=-1) / bnorm
+        dres = nnorm(c - _mv(AT, y) - zl + zu) / cnorm
+        pobj = ndot(c, x)
+        dobj = _dot(b, y) + ndot(l, zl) - ndot(u, zu)
         relgap = (pobj - dobj).abs() / (1 + pobj.abs() + dobj.abs())
         return (pres < tol) & (dres < tol) & (relgap < tol)
 
     def step(p, q, zl, zu, y, mu_prev, stall):
         x = l + p
-        r_p = b - _mv(A, x)
+        r_p = b - nsum(_mv(A, x))
         r_d = c - _mv(AT, y) - zl + zu
-        gap = _dot(p, zl) + _dot(q, zu)
+        gap = ndot(p, zl) + ndot(q, zu)
         mu = gap / (2 * n)
         # at the f32 precision floor mu stops contracting; further
         # Mehrotra steps there only pollute the iterate
         stall = torch.where(mu > 0.7 * mu_prev, stall + 1, 0)
 
         d = 1.0 / (zl / p + zu / q)
-        ADA = torch.matmul(A * d[:, None, :], AT)
+        ADA = nsum(torch.matmul(A * d[:, None, :], AT))
         diag_max = torch.diagonal(ADA, dim1=-2, dim2=-1).amax(-1)
         ADA_reg = ADA + (reg_base * (1.0 + diag_max))[:, None, None] * eye
         L, info = torch.linalg.cholesky_ex(ADA_reg)
@@ -133,7 +162,7 @@ def ipm_dense_batched(A, b, c, l, u, tol: float = 1e-8, max_iters: int = 50,
 
         def newton(rp, rd, rcl, rcu):
             rhs_x = rd - rcl / p + rcu / q
-            rhs_y = rp + _mv(A, d * rhs_x)
+            rhs_y = rp + nsum(_mv(A, d * rhs_x))
             dy = torch.cholesky_solve(rhs_y.unsqueeze(-1), L).squeeze(-1)
             # one iterative-refinement pass: the f32 Cholesky at
             # cond(ADA) ~ 1/mu loses most of its digits mid-solve
@@ -149,24 +178,24 @@ def ipm_dense_batched(A, b, c, l, u, tol: float = 1e-8, max_iters: int = 50,
 
         # predictor
         dx_a, dy_a, dzl_a, dzu_a = newton(r_p, r_d, -p * zl, -q * zu)
-        ap = torch.minimum(_max_step(p, dx_a), _max_step(q, -dx_a))
-        ad = torch.minimum(_max_step(zl, dzl_a), _max_step(zu, dzu_a))
-        gap_aff = (_dot(p + col(ap) * dx_a, zl + col(ad) * dzl_a)
-                   + _dot(q - col(ap) * dx_a, zu + col(ad) * dzu_a))
+        ap = torch.minimum(nstep(p, dx_a), nstep(q, -dx_a))
+        ad = torch.minimum(nstep(zl, dzl_a), nstep(zu, dzu_a))
+        gap_aff = (ndot(p + col(ap) * dx_a, zl + col(ad) * dzl_a)
+                   + ndot(q - col(ap) * dx_a, zu + col(ad) * dzu_a))
         sigma = torch.clamp((gap_aff / gap) ** 3, 0.0, 1.0)
 
         # corrector
         rcl = col(sigma * mu) - p * zl - dx_a * dzl_a
         rcu = col(sigma * mu) - q * zu + dx_a * dzu_a
         dx, dy, dzl, dzu = newton(r_p, r_d, rcl, rcu)
-        ap = 0.9995 * torch.minimum(_max_step(p, dx), _max_step(q, -dx))
-        ad = 0.9995 * torch.minimum(_max_step(zl, dzl), _max_step(zu, dzu))
+        ap = 0.9995 * torch.minimum(nstep(p, dx), nstep(q, -dx))
+        ad = 0.9995 * torch.minimum(nstep(zl, dzl), nstep(zu, dzu))
 
         # damp the step so mu lands ON mu_exit instead of overshooting it
         # (the endgame hand-off wants a centred iterate at the target mu);
         # a no-op when mu_exit == 0
-        gap_next = (_dot(p + col(ap) * dx, zl + col(ad) * dzl)
-                    + _dot(q - col(ap) * dx, zu + col(ad) * dzu))
+        gap_next = (ndot(p + col(ap) * dx, zl + col(ad) * dzl)
+                    + ndot(q - col(ap) * dx, zu + col(ad) * dzu))
         target = 0.5 * mu_exit * (2 * n)
         t = torch.where(gap_next < target,
                         torch.sqrt(target / torch.clamp(gap_next, min=1e-30)),
@@ -201,7 +230,7 @@ def ipm_dense_batched(A, b, c, l, u, tol: float = 1e-8, max_iters: int = 50,
             it = it + move.long()
         done = done | converged(p, q, zl, zu, y)
     x = l + p
-    return {"x": x, "y": y, "zl": zl, "zu": zu, "obj_val": _dot(c, x),
+    return {"x": x, "y": y, "zl": zl, "zu": zu, "obj_val": ndot(c, x),
             "iters": it, "converged": done}
 
 

@@ -387,11 +387,29 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
     return l_full + P, Y, ZL, ZU, conv, iters_used
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a sharded device stage) is not ported yet: ROADMAP 1.15, "
-            "multi-device")
+def _device_stage_on_mesh(mesh, A, b, c, l, u, **kw):
+    """``ipm_dense_batched`` sharded over a mesh (``parallel/mesh.py``) as
+    the JAX package shards it, every output all-gathered.  With fewer
+    instances than the 'model' width (> 1, dividing n) the columns are
+    split: each rank holds A's (m, n/p) slab, the (m, m) normal equations
+    are all-reduced and replicated, and so is the loop state.  Otherwise
+    the batch is split over the 'batch' axis, each rank running its slice
+    with no collective until the gather."""
+    B, m, n = A.shape
+    model = dict(mesh.shape).get("model", 1)
+    if B < model and model > 1 and n % model == 0:
+        lo, hi = mesh.slice("model", n)
+        out = ipm_dense_batched(
+            A[:, :, lo:hi], b, c[:, lo:hi], l[:, lo:hi], u[:, lo:hi],
+            device=mesh.device,
+            col_reduce=lambda t, op: mesh.all_reduce(t, op, "model"), **kw)
+        for k in ("x", "zl", "zu"):
+            out[k] = mesh.gather(out[k], "model", dim=1)
+        return out
+    lo, hi = mesh.slice("batch", B)
+    out = ipm_dense_batched(*(a[lo:hi] for a in (A, b, c, l, u)),
+                            device=mesh.device, **kw)
+    return {k: mesh.gather(v, "batch") for k, v in out.items()}
 
 
 def ipm_big(A, b, c, l, u, tol: float = 1e-8,
@@ -403,17 +421,18 @@ def ipm_big(A, b, c, l, u, tol: float = 1e-8,
     m >= 5000: a host f64 IPM pays it every iteration, here the device
     stage carries the bulk iterations and the host (or, through
     ``SCX_DEVICE_ENDGAME``, the device normal equations) only the endgame.
-    ``mesh`` must be None (ROADMAP 1.15); ``device`` as in ``ipm_fleet``.
+    ``mesh`` and ``device`` as in ``ipm_fleet``: with a 'model' axis wider
+    than 1 that divides n, the device stage splits A's columns over it.
 
     Returns an IPMResult with ``device_s``, ``endgame_s``, ``device_iters``
     and ``endgame_iters`` attached.
     """
-    _no_mesh(mesh)
     t0 = time.perf_counter()
     res = ipm_fleet(A[None], b[None], c[None], l[None], u[None], tol=tol,
                     device_tol=device_tol,
                     max_device_iters=max_device_iters,
-                    max_refine_iters=max_refine_iters, device=device)
+                    max_refine_iters=max_refine_iters, mesh=mesh,
+                    device=device)
     import datetime
 
     x, y = res.x[0], res.y[0]
@@ -457,17 +476,23 @@ def ipm_fleet(A, b, c, l, u, tol: float = 1e-8,
         device_tol: target for the device stage; in float32 anything below
             ~1e-5 just burns iterations.
         refine: set False to skip the host stage (device iterates only).
-        mesh: must be None; a sharded device stage is ROADMAP 1.15.
-        device: where the device stage runs (default: A's device if A is a
-            tensor, else the CUDA card; without one that default raises):
-            float32 on a card, float64 on the CPU.
+        mesh: an optional ``parallel.make_mesh`` mesh; every rank calls
+            with the same full fleet.  The device stage is then sharded
+            over it (``_device_stage_on_mesh``: the batch over 'batch', B
+            divisible by its width, or, for B below the 'model' width, A's
+            columns over 'model') and gathered; every rank runs the host
+            endgame on the whole fleet and returns the same result.
+        device: where the device stage runs (default: the mesh's device,
+            else A's device if A is a tensor, else the CUDA card; without
+            one that default raises): float32 on a card, float64 on the
+            CPU.
 
     Returns:
         FleetResult; ``status[i] == 'OPTIMAL'`` means instance i passed
         the full f64 KKT test at ``tol``.
     """
-    _no_mesh(mesh)
-    dev = resolve_device(device, A)
+    dev = mesh.device if mesh is not None and device is None \
+        else resolve_device(device, A)
     A, b, c, l, u = (np.asarray(_host(v), dtype=np.float64)
                      for v in (A, b, c, l, u))
     B, m, n = A.shape
@@ -478,9 +503,11 @@ def ipm_fleet(A, b, c, l, u, tol: float = 1e-8,
     # mu ~ 1e-4 centred; driving f32 deeper leaves ~1e-4 primal residuals
     # the f64 endgame then pays 20+ iterations to unwind
     mu_exit = 0.0 if f64 else 1e-4
-    dev_out = ipm_dense_batched(A, b, c, l, u, tol=device_tol,
-                                max_iters=max_device_iters, mu_exit=mu_exit,
-                                device=dev)
+    kw = dict(tol=device_tol, max_iters=max_device_iters, mu_exit=mu_exit)
+    if mesh is not None:
+        dev_out = _device_stage_on_mesh(mesh, A, b, c, l, u, **kw)
+    else:
+        dev_out = ipm_dense_batched(A, b, c, l, u, device=dev, **kw)
     x_dev, y_dev, zl_dev, zu_dev = (
         dev_out[k].double().cpu().numpy() for k in ("x", "y", "zl", "zu"))
     dev_iters = dev_out["iters"].cpu().numpy().astype(np.int64)

@@ -7,8 +7,8 @@ crossover on sparse LP data.  The JAX module's ``apply_projector_jax`` (a
 ``jax.scipy`` CG on a dense Y) becomes ``apply_projector_torch``: the same
 CG on ``Y Y'`` in torch, on the CUDA card by default.  Its products stay
 ``torch.matmul``, as the JAX package computes them outside any Pallas
-kernel.  The mesh-sharded projector (``parallel/projector.py``) is not
-ported (ROADMAP 1.15).
+kernel.  The mesh-sharded projector (``parallel/projector.py``) runs
+the same CG on its all-reduced operator.
 """
 from __future__ import annotations
 
@@ -79,18 +79,21 @@ def apply_projector_with_free(Y, v, A_f, tol: float = 1e-6,
 # torch path (dense Y on the card: the counterpart of apply_projector_jax)
 # --------------------------------------------------------------------------
 def _cg_normal(Y: torch.Tensor, rhs: torch.Tensor, tol: float,
-               max_iter: int, block: int = 32):
+               max_iter: int, block: int = 32, mv=None):
     """CG on (Y Y') z = rhs, from z = 0, with the stopping rule of
     ``jax.scipy.sparse.linalg.cg``: a lane stops once r.r <= tol^2 rhs.rhs
     (``atol`` 0) or after ``max_iter`` iterations.
 
     Y is (m, n) or (B, m, n) and rhs (m,) or (B, m): each leading index is
-    a lane.  The host reads the stopping test once per ``block``
-    iterations; within a block a stopped lane's update is masked out, so
-    every lane ends at the iteration a per-iteration check would stop it
-    at.  Returns (z, iterations per lane)."""
-    def mv(w):
-        return (Y @ (Y.mT @ w.unsqueeze(-1))).squeeze(-1)
+    a lane.  ``mv`` is the operator z -> Y Y' z (default: the product on
+    Y; the sharded projector passes its all-reduced one).  The host reads
+    the stopping test once per ``block`` iterations; within a block a
+    stopped lane's update is masked out, so every lane ends at the
+    iteration a per-iteration check would stop it at.  Returns (z,
+    iterations per lane)."""
+    if mv is None:
+        def mv(w):
+            return (Y @ (Y.mT @ w.unsqueeze(-1))).squeeze(-1)
 
     def dot(a, b):
         return (a * b).sum(-1)

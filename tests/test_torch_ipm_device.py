@@ -270,12 +270,29 @@ def test_ipm_fleet_device_only_matches_jax(rng):
 
 
 def test_ipm_fleet_refuses_a_mesh(rng):
+    """``mesh=`` no longer raises: on a one-rank CPU mesh ipm_fleet and
+    ipm_big give the unsharded calls' results (the multi-rank meshes are
+    held to JAX in tests/test_torch_sharded.py)."""
+    import torch.distributed as dist
+
+    from smart_crossover_tpu_torch.parallel import make_mesh
+
     As, bs, cs, ls, us = make_fleet(rng, 2, 3, 6)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.15"):
-        tfleet.ipm_fleet(As, bs, cs, ls, us, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.15"):
-        tfleet.ipm_big(As[0], bs[0], cs[0], ls[0], us[0], mesh=object(),
-                       device="cpu")
+    started = not dist.is_initialized()
+    mesh = make_mesh(device="cpu")
+    try:
+        got = tfleet.ipm_fleet(As, bs, cs, ls, us, mesh=mesh)
+        big = tfleet.ipm_big(As[0], bs[0], cs[0], ls[0], us[0], mesh=mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+    want = tfleet.ipm_fleet(As, bs, cs, ls, us, device="cpu")
+    np.testing.assert_array_equal(got.x, want.x)
+    np.testing.assert_array_equal(got.device_iters, want.device_iters)
+    assert got.status == want.status
+    want = tfleet.ipm_big(As[0], bs[0], cs[0], ls[0], us[0], device="cpu")
+    np.testing.assert_array_equal(big.x, want.x)
+    assert big.status == want.status
 
 
 def test_endgame_from_jax_device_iterate(rng):

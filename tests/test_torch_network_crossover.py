@@ -378,7 +378,7 @@ def test_batched_tnet_exact_device_engines(engine, exact_batch):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(mesh=object()), NotImplementedError, r"ROADMAP 1\.15"),
+    (dict(mesh=object(), engine="nope"), ValueError, "unknown engine"),
     (dict(engine="nope"), ValueError, "unknown engine"),
 ])
 def test_batched_tnet_exact_unported_options_raise(kw, exc, match):
