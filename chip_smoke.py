@@ -18,9 +18,14 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           resident clusters, shared memory per block, whether N lives in
           shared memory), per-instance pivots and ms per pivot;
   main    the certified-exact OT crossover, batched_tnet_exact_device, at
-          64 x 256^2 and at 16 x 784^2 (bench.py's shapes and seeds): every
-          instance certified by the host f64 certifier, both kernels
-          launched, stage split, certified instances/s;
+          64 x 256^2 and at 16 x 784^2 (the benchmark's shapes and seeds,
+          smart_crossover_tpu_torch/bench.py): every instance certified by
+          the host f64 certifier, both kernels launched, stage split,
+          certified instances/s;
+  bench   `python -m smart_crossover_tpu_torch bench` in a subprocess at
+          full size (both rows): rc 0, every instance certified and
+          optimal on the card, K1 and K2 launched once per timed call, the
+          same card; its certified instances/s beside main's;
   network_crossover_784x784
           the paper's front door on instance 0 of the 16 x 784^2 batch:
           sinkhorn(ot) through K1 (one launch, B = 1, against its plain
@@ -266,7 +271,7 @@ def k1_at(B, S, D, seed, reps, plain_reps):
     record, largest potential gap, kernel and plain ms and work."""
     import torch
 
-    import bench
+    from smart_crossover_tpu_torch import bench
     from smart_crossover_tpu_torch.ops import sinkhorn_fused as sf
 
     s, d, M = to_cuda(*bench.make_batch(B, S, D, seed=seed))
@@ -330,7 +335,7 @@ def k2_at(scx, B, S, D, seed, reps, n_plain):
     objectives' largest gap and the work that bounds it."""
     import torch
 
-    import bench
+    from smart_crossover_tpu_torch import bench
     from smart_crossover_tpu_torch.ops import transport_simplex_mega as tsm
     from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
 
@@ -395,57 +400,10 @@ def phase_k2(scx):
     return out
 
 
-def stage_split(s, d, M):
-    """One run of the main path's stages, each synced and timed (ms)."""
-    import torch
-
-    from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
-    from smart_crossover_tpu_torch.ops.ranking import ot_flow_indicators
-    from smart_crossover_tpu_torch.ops.sinkhorn_fused import (
-        sinkhorn_plan_fused)
-    from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
-        mega_setup, rebuild_plan, transport_simplex_mega_state)
-    from smart_crossover_tpu_torch.ops.tree import (
-        bipartite_tree_solve, push_to_bfs)
-    from smart_crossover_tpu_torch.solvers.sinkhorn import round_to_feasible
-
-    ms = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-
-    def mark(name):
-        nonlocal t0
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        ms[name] = (t1 - t0) * 1e3
-        t0 = t1
-
-    Mn = (M / (REG * M.amax((1, 2)))[:, None, None]).contiguous()
-    plan, _, _ = sinkhorn_plan_fused(s, d, Mn, 1.0, SINKHORN_ITERS)
-    mark("sinkhorn_kernel")
-    W = ot_flow_indicators(round_to_feasible(plan, s, d), s, d)
-    mark("round_indicators")
-    tree = boruvka_bipartite_mst(W)
-    mark("boruvka_flow")
-    X = bipartite_tree_solve(tree, s, d)
-    mark("tree_solve")
-    X0, push = push_to_bfs(X)
-    mark("push")
-    Bm0 = boruvka_bipartite_mst((X0 > 1e-12).to(M.dtype))
-    mark("boruvka_support")
-    st = mega_setup(X0, Bm0, M)
-    mark("simplex_setup")
-    out = transport_simplex_mega_state(st, max_pivots=MAX_PIVOTS)
-    mark("simplex_kernel")
-    rebuild_plan(out[0], out[1], *M.shape[1:])
-    mark("rebuild")
-    return ms, int(push.max().item())
-
-
 def phase_main(scx, B, S, D, seed, reps):
     import torch
 
-    import bench
+    from smart_crossover_tpu_torch import bench
     from smart_crossover_tpu_torch.ops import transport_simplex_mega as tsm
 
     s64, d64, M64 = bench.make_batch(B, S, D, seed=seed)
@@ -472,7 +430,8 @@ def phase_main(scx, B, S, D, seed, reps):
     cobj = np.array([c.obj_val for c in certs])
     obj_rel = float(np.max(np.abs(obj.double().cpu().numpy() - cobj)
                            / np.abs(cobj)))
-    split, push_max = stage_split(s, d, M)
+    split, split_push, _ = bench.stage_split(s, d, M, REG, SINKHORN_ITERS,
+                                             MAX_PIVOTS)
     rec = {"phase": f"main_{B}x{S}x{D}", "seed": seed,
            "n_certified": int(n_cert), "batch": B,
            "all_optimal_device": bool(opt.all()),
@@ -488,7 +447,7 @@ def phase_main(scx, B, S, D, seed, reps):
            "certified_instances_per_s": B / (dev_ms / 1e3 + cert_s),
            "launches": counts, "k2_cluster_size": k2_cluster,
            "stage_ms": split,
-           "stage_split_push_max": push_max}
+           "stage_split_push_max": int(split_push.max().item())}
     emit(rec)
     require(X.shape == (B, S, D) and bool(torch.isfinite(X).all())
             and bool(torch.isfinite(obj).all()), "main path output malformed")
@@ -499,7 +458,42 @@ def phase_main(scx, B, S, D, seed, reps):
             and counts["transport_simplex_mega"] > 0,
             f"a kernel was not launched on the OT path: {counts}")
     require(k2_cluster > 1, f"K2 ran {k2_cluster} block per instance")
-    return counts, cobj
+    return counts, cobj, rec["certified_instances_per_s"]
+
+
+def phase_bench(torch, main_ips):
+    """`python -m smart_crossover_tpu_torch bench` in a subprocess at full
+    size: rc 0, both rows correct and certified, K1 and K2 launched once
+    per timed call, on this card.  `main_ips`: main_*'s certified
+    instances/s by row, printed beside the bench's."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "smart_crossover_tpu_torch",
+                        "bench"], capture_output=True, text=True,
+                       timeout=900, cwd=os.path.dirname(
+                           os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    require(r.returncode == 0 and lines,
+            f"bench: rc {r.returncode}: {r.stderr[-600:]}")
+    res = json.loads(lines[-1])
+    rows = {"ot_64x256x256": res["detail"],
+            "ot_16x784x784": res["detail"]["mnist_784"]}
+    emit({"phase": "bench", "seconds": seconds,
+          "certified_instances_per_s": {
+              c: {"bench": row["certified_instances_per_sec"],
+                  "main": main_ips[c],
+                  "bench_over_main": row["certified_instances_per_sec"]
+                  / main_ips[c]} for c, row in rows.items()},
+          "result": res})
+    require(res["detail"]["device_name"] == torch.cuda.get_device_name(0),
+            f"bench ran on {res['detail']['device_name']}")
+    for c, row in rows.items():
+        require(row["correct"] and row["n_certified"] == row["batch"]
+                and row["all_optimal_device"], f"bench {c}: not correct")
+        per = row["launches_per_call"]
+        require(per["sinkhorn_fused"] == 1
+                and per["transport_simplex_mega"] == 1,
+                f"bench {c}: K1/K2 launches per call {per}")
 
 
 # ------------------------------------------------------ network crossover
@@ -512,7 +506,7 @@ def phase_network_crossover(scx, cert_obj):
     host certifier: another route)."""
     import torch
 
-    import bench
+    from smart_crossover_tpu_torch import bench
     from smart_crossover_tpu_torch.ops import sinkhorn_fused as sf
     from smart_crossover_tpu_torch.solvers.sinkhorn import round_to_feasible
 
@@ -815,7 +809,7 @@ def phase_tnet_exact(scx, cert_objs):
     `cert_objs` are that phase's certified objectives."""
     import torch
 
-    import bench
+    from smart_crossover_tpu_torch import bench
 
     s, d, M = bench.make_batch(64, 256, 256, seed=0)
     rec = {"phase": "tnet_exact_64x256x256", "seed": 0,
@@ -867,7 +861,7 @@ def engine_exact(scx, engine, B, S, D, seed, cert_objs):
     never.  Returns its record."""
     import torch
 
-    import bench
+    from smart_crossover_tpu_torch import bench
 
     s, d, M = (a[:B] for a in bench.make_batch(len(cert_objs), S, D,
                                                seed=seed))
@@ -899,7 +893,7 @@ def engine_exact(scx, engine, B, S, D, seed, cert_objs):
 def pivot_stage_ms(engines, B, S, D, seed, reps):
     """The pivot stage alone, each engine against K2 ('mega') on the same
     TNET warm start in this process: median synced ms and the pivots."""
-    import bench
+    from smart_crossover_tpu_torch import bench
     from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
     from smart_crossover_tpu_torch.parallel import batched as pb
 
@@ -1560,7 +1554,7 @@ def phase_solve_ot(scx, cert_obj):
     once, K2 never) and with 'mega' (K1 and K2 once each)."""
     import torch
 
-    import bench
+    from smart_crossover_tpu_torch import bench
 
     s, d, M = (a[0] for a in bench.make_batch(16, 784, 784, seed=1))
     ot = scx.OptTransport(s=s, d=d, M=M)
@@ -1949,7 +1943,7 @@ def phase_sharded(scx, cobj, cobj7, goto_x=None):
     import torch
     import torch.distributed as dist
 
-    import bench
+    from smart_crossover_tpu_torch import bench
     from smart_crossover_tpu_torch import parallel as P
     from smart_crossover_tpu_torch.data.mcf_gen import goto_like_mcf
     from smart_crossover_tpu_torch.ops.ranking import mcf_flow_indicators
@@ -2199,8 +2193,9 @@ def main() -> int:
     phase_build(_build)
 
     kernels = [phase_k1(), phase_k2(scx)]
-    counts, cobj = phase_main(scx, 64, 256, 256, seed=0, reps=5)
-    counts7, cobj7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
+    counts, cobj, ips = phase_main(scx, 64, 256, 256, seed=0, reps=5)
+    counts7, cobj7, ips7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
+    phase_bench(torch, {"ot_64x256x256": ips, "ot_16x784x784": ips7})
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_784"] = counts7[k["name"]]

@@ -113,7 +113,7 @@ def diff(a, p):
 def main() -> int:
     import torch
 
-    import bench
+    from smart_crossover_tpu_torch import bench
     from smart_crossover_tpu_torch.ops import sinkhorn_fused as sf
 
     ap = argparse.ArgumentParser()

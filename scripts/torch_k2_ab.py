@@ -73,7 +73,7 @@ def run_old(lib, st, tol=1e-7, max_pivots=MAX_PIVOTS, refresh=128):
 def warm_state(B, S, D, seed):
     import torch
 
-    import bench
+    from smart_crossover_tpu_torch import bench
     import smart_crossover_tpu_torch as scx
     from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
     from smart_crossover_tpu_torch.ops.transport_simplex_mega import (

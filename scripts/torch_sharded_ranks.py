@@ -50,7 +50,7 @@ def main(argv=None) -> int:
     import torch
     import torch.distributed as dist
 
-    import bench
+    from smart_crossover_tpu_torch import bench
     import chip_smoke as cs
     import smart_crossover_tpu_torch as scx
     from smart_crossover_tpu_torch import parallel as P

@@ -3,7 +3,9 @@
 Port of ``smart_crossover_tpu/__main__.py``.  ``solve`` and ``crossover``
 work as in the JAX CLI, over the port's facade; ``--device`` picks where
 the device routes run (the CUDA card by default, ``cpu`` for the CPU).
-Not ported yet: ``bench`` (the port has no benchmark, ROADMAP 1.0e).
+``bench`` runs the port's throughput benchmark (``bench.py``) on the card
+(``--device cpu``: a reduced check on the CPU), with ``--seed`` and
+``--cell``.
 """
 from __future__ import annotations
 
@@ -35,15 +37,15 @@ def main(argv=None) -> int:
                        help="where the device routes run: cuda (default) "
                             "or cpu")
 
-    sub.add_parser("bench", help="run the throughput benchmark (not ported)")
+    from smart_crossover_tpu_torch import bench
+
+    bench.add_arguments(sub.add_parser("bench",
+                                       help="run the throughput benchmark"))
 
     args = ap.parse_args(argv)
 
     if args.cmd == "bench":
-        print("smart_crossover_tpu_torch: the port has no benchmark yet "
-              "(ROADMAP 1.0e); `python -m smart_crossover_tpu bench` runs "
-              "the JAX package's", file=sys.stderr)
-        return 2
+        return bench.run(args)
 
     from smart_crossover_tpu_torch.data.loaders import load_instance
     from smart_crossover_tpu_torch.models import MinCostFlow, OptTransport
