@@ -7,14 +7,16 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
   env     the card (nvidia-smi name and power limit), torch, CUDA, nvcc;
   build   the port's CUDA kernels, compiled from csrc/ with nvcc;
   k1      the Sinkhorn kernel against its plain PyTorch version on the
-          card at 64 x 256^2 (seed 0) and 16 x 784^2 (seed 1), with the
+          card at 64 x 256^2 (seed 0), 16 x 784^2 (seed 1) and the serving
+          row's 16 x 128^2 (its first dispatch's batch), with the
           median time of each, ms per iteration and the cluster plan
           (cluster size, resident clusters, waves, rows of M in shared
           memory, shared memory per block);
-  k2      the pivot-loop kernel against its plain version at both OT
-          shapes: 64 x 256^2 (seed 0, all 64 instances) and 16 x 784^2
+  k2      the pivot-loop kernel against its plain version at the OT
+          shapes: 64 x 256^2 (seed 0, all 64 instances), 16 x 784^2
           (seed 1; the kernel on all 16, median of 3 synced runs; the plain
-          version on the first 4), with the cluster plan (cluster size,
+          version on the first 4) and the serving row's 16 x 128^2 (all
+          16), with the cluster plan (cluster size,
           resident clusters, shared memory per block, whether N lives in
           shared memory), per-instance pivots and ms per pivot;
   main    the certified-exact OT crossover, batched_tnet_exact_device, at
@@ -25,7 +27,12 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
   bench   `python -m smart_crossover_tpu_torch bench` in a subprocess at
           full size (both rows): rc 0, every instance certified and
           optimal on the card, K1 and K2 launched once per timed call, the
-          same card; its certified instances/s beside main's;
+          same card; its certified instances/s beside main's; then, each in
+          its own subprocess, `bench --cell serve_16x128x128x16` (rc 0,
+          256/256 certified and optimal on the card, K1 and K2 once per
+          dispatch) and `bench --cell goto17_cnet_mcf` (rc 0, CNET_MCF
+          from the card's PDHG warm start equal to the cold native core
+          to 1e-8 (1 + |obj|), no dense PDHG kernel), each on this card;
   network_crossover_784x784
           the paper's front door on instance 0 of the 16 x 784^2 batch:
           sinkhorn(ot) through K1 (one launch, B = 1, against its plain
@@ -43,10 +50,13 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           iteration with the incidence operator (index_add_) and with CSR;
   pdhg_mcf_goto17
           pdhg_mcf_device at scripts/run_goto17.py's scale (362^2 nodes,
-          786,264 arcs), 5000 Halpern iterations: ms per iteration, the
-          relative KKT residuals at the start, after 250 iterations and at
-          the end (finite; the primal one below its start, the sum below
-          the 250-iteration one), both operators' ms per iteration;
+          786,264 arcs): the first 250 Halpern iterations here, the full
+          5000-iteration warm start taken from the goto17_cnet_mcf row of
+          the bench phase (a cut of depth: this phase ran its own 5000
+          iterations at tol 0 before that row existed); ms per
+          iteration, the relative KKT residuals at the start, after 250 and
+          at the row's end (finite; the primal one below its start, the sum
+          below the 250-iteration one), both operators' ms per iteration;
   tnet_exact_64x256x256
           batched_tnet_exact on main_64x256x256's batch: the host route,
           'auto' (which must take the mega route) and the mega route
@@ -132,7 +142,8 @@ median ms, launches on the main path, the plain version's ms, and its
 bound: the largest of the operations these inputs need at the card's
 float32 peak, the bytes it must move at the HBM rate and, for K1, the
 exps at the MUFU rate, 16 per clock per SM at the card's max SM clock;
-K1 and K2 add their launches on the sharded routes) and, last,
+K1 and K2 add their launches on the sharded routes and per serving
+dispatch, K3-K5 on the GOTO-17 row) and, last,
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.  It imports nothing of JAX.
 """
@@ -185,7 +196,12 @@ EX2_PER_CLOCK_PER_SM = 16
 EXP_PER_S = None
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:          # when the phase ended, from the start
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -311,11 +327,15 @@ def k1_at(B, S, D, seed, reps, plain_reps):
 def phase_k1():
     err, ms, plain_ms, work = k1_at(64, 256, 256, 0, 5, 3)
     err7, ms7, plain7, work7 = k1_at(16, 784, 784, 1, 5, 2)
+    # the serving row's shape, its first dispatch's batch
+    err1, ms1, plain1, work1 = k1_at(16, 128, 128, 0, 5, 3)
     out = summary("sinkhorn_fused", "smart_crossover_tpu_torch/csrc/"
                   "sinkhorn.cu",
                   "smart_crossover_tpu/ops/sinkhorn_pallas.py:26",
-                  max(err, err7), ms, plain_ms, work)
-    out.update(ms_784=ms7, plain_ms_784=plain7, bound_ms_784=bound(*work7)[0])
+                  max(err, err7, err1), ms, plain_ms, work)
+    out.update(ms_784=ms7, plain_ms_784=plain7, bound_ms_784=bound(*work7)[0],
+               ms_serve_128=ms1, plain_ms_serve_128=plain1,
+               bound_ms_serve_128=bound(*work1)[0])
     return out
 
 
@@ -390,13 +410,16 @@ def k2_at(scx, B, S, D, seed, reps, n_plain):
 def phase_k2(scx):
     err, ms, plain_ms, work = k2_at(scx, 64, 256, 256, 0, 5, 64)
     err7, ms7, plain7, work7 = k2_at(scx, 16, 784, 784, 1, 3, 4)
+    err1, ms1, plain1, work1 = k2_at(scx, 16, 128, 128, 0, 5, 16)
     out = summary("transport_simplex_mega", "smart_crossover_tpu_torch/"
                   "csrc/transport_simplex_mega.cu",
                   "smart_crossover_tpu/ops/transport_simplex_mega.py:73",
                   # objectives of the two final plans (their bases may tie)
-                  max(err, err7), ms, plain_ms, work)
+                  max(err, err7, err1), ms, plain_ms, work)
     b7, _ = bound(*work7)
-    out.update(ms_784=ms7, plain_ms_784_first4=plain7, bound_ms_784=b7)
+    out.update(ms_784=ms7, plain_ms_784_first4=plain7, bound_ms_784=b7,
+               ms_serve_128=ms1, plain_ms_serve_128=plain1,
+               bound_ms_serve_128=bound(*work1)[0])
     return out
 
 
@@ -461,21 +484,32 @@ def phase_main(scx, B, S, D, seed, reps):
     return counts, cobj, rec["certified_instances_per_s"]
 
 
-def phase_bench(torch, main_ips):
-    """`python -m smart_crossover_tpu_torch bench` in a subprocess at full
-    size: rc 0, both rows correct and certified, K1 and K2 launched once
-    per timed call, on this card.  `main_ips`: main_*'s certified
-    instances/s by row, printed beside the bench's."""
+def run_bench(*args):
+    """`python -m smart_crossover_tpu_torch bench *args` in a subprocess:
+    (its result line, seconds); fails unless rc 0."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "smart_crossover_tpu_torch",
-                        "bench"], capture_output=True, text=True,
+                        "bench", *args], capture_output=True, text=True,
                        timeout=900, cwd=os.path.dirname(
                            os.path.abspath(__file__)))
     seconds = time.perf_counter() - t0
     lines = r.stdout.strip().splitlines()
     require(r.returncode == 0 and lines,
-            f"bench: rc {r.returncode}: {r.stderr[-600:]}")
-    res = json.loads(lines[-1])
+            f"bench {' '.join(args)}: rc {r.returncode}: {r.stderr[-600:]}")
+    return json.loads(lines[-1]), seconds
+
+
+def phase_bench(torch, main_ips):
+    """`python -m smart_crossover_tpu_torch bench` in a subprocess at full
+    size: rc 0, both rows correct and certified, K1 and K2 launched once
+    per timed call, on this card.  `main_ips`: main_*'s certified
+    instances/s by row, printed beside the bench's.  Then each row that
+    runs only when named, once: serve_16x128x128x16 (256/256 certified,
+    all optimal on the card, K1 and K2 once per dispatch) and
+    goto17_cnet_mcf (CNET_MCF equal to the cold native core, the warm
+    start on the card with no dense PDHG kernel).  Returns those two
+    rows' details."""
+    res, seconds = run_bench()
     rows = {"ot_64x256x256": res["detail"],
             "ot_16x784x784": res["detail"]["mnist_784"]}
     emit({"phase": "bench", "seconds": seconds,
@@ -494,6 +528,31 @@ def phase_bench(torch, main_ips):
         require(per["sinkhorn_fused"] == 1
                 and per["transport_simplex_mega"] == 1,
                 f"bench {c}: K1/K2 launches per call {per}")
+    rows = {}
+    for cell in ("serve_16x128x128x16", "goto17_cnet_mcf"):
+        res, seconds = run_bench("--cell", cell)
+        row = rows[cell] = res["detail"]
+        emit({"phase": f"bench_{cell}", "seconds": seconds, "result": res})
+        require(row["device_name"] == torch.cuda.get_device_name(0)
+                and row["backend"] == "cuda",
+                f"bench {cell} ran on {row['device_name']}")
+        require(row["correct"] and np.isfinite(res["value"]),
+                f"bench {cell}: not correct")
+    serve = rows["serve_16x128x128x16"]
+    per = serve["launches_per_dispatch"]
+    require(serve["n_certified"] == serve["total_instances"] == 256
+            and serve["all_optimal_device"],
+            f"serving: {serve['n_certified']}/256 certified")
+    require(per["sinkhorn_fused"] == 1 and per["transport_simplex_mega"] == 1,
+            f"serving: K1/K2 launches per dispatch {per}")
+    goto = rows["goto17_cnet_mcf"]
+    require(goto["cold_status"] == goto["crossover_status"] == "OPTIMAL"
+            and goto["obj_match"], "goto17: CNET_MCF off the cold core")
+    require(not any(goto["launches"][k] for k in ("pdhg_chunk",
+                                                   "halpern_chunk",
+                                                   "pdhg_batched")),
+            f"goto17 launched a dense PDHG kernel: {goto['launches']}")
+    return serve, goto
 
 
 # ------------------------------------------------------ network crossover
@@ -609,18 +668,6 @@ def require_no_dense_pdhg(scx, what):
     return counts
 
 
-def mcf_kkt(mcf, x, y):
-    """(primal, dual, gap) relative KKT residuals of an MCF pair, host
-    f64, as pdhg_solve measures them (l = 0, u = the capacities)."""
-    import scipy.sparse as ssp
-
-    from smart_crossover_tpu_torch.solvers.pdhg import _host_kkt
-
-    return _host_kkt(ssp.csr_matrix(mcf.A), np.asarray(mcf.b, float),
-                     np.asarray(mcf.c, float), np.zeros(mcf.n),
-                     np.asarray(mcf.u, float), np.ones(mcf.m, bool), x, y)
-
-
 def operator_ms(mcf, iters):
     """ms per Halpern PDHG iteration on the card, float32, of the MCF's
     incidence matrix as the index_add_/gather operator and as a CSR
@@ -676,6 +723,7 @@ def phase_goto(scx):
     import torch
     from scipy.optimize import linprog
 
+    from smart_crossover_tpu_torch.bench_goto17 import mcf_kkt
     from smart_crossover_tpu_torch.data.mcf_gen import goto_like_mcf
     from smart_crossover_tpu_torch.solvers.network_simplex import (
         network_simplex)
@@ -758,44 +806,48 @@ def phase_goto(scx):
     return counts, counts_w, xw
 
 
-def phase_goto17(scx):
+def phase_goto17(scx, row):
     """pdhg_mcf_device at the flagship scale of scripts/run_goto17.py:
     goto_like_mcf(362, 362, 4, regular=True), 131,044 nodes and 786,264
-    arcs, 5000 Halpern iterations on the card (tol 0: no early stop).
-    The relative KKT residuals (host f64) at the start (x = 0, y = 0: only
-    the primal one is nonzero there), after the first 250-iteration chunk
-    and at the end must be finite; the primal residual must fall below
-    its start and the summed score below the first chunk's.  Then the
-    incidence operator against a CSR operator, ms per Halpern iteration."""
-    import torch
-
+    arcs.  The full warm start is the goto17_cnet_mcf row's (`row`, the
+    bench phase's run on the same instance read back from its .min file:
+    5000 Halpern iterations at tol 1e-4); here the first 250-iteration
+    chunk on the card.  The relative KKT residuals (host f64) at the start
+    (x = 0, y = 0: only the primal one is nonzero there), after the first
+    chunk and at the row's end must be finite; the primal residual must
+    fall below its start and the summed score below the first chunk's.
+    Then the incidence operator against a CSR operator, ms per Halpern
+    iteration."""
+    from smart_crossover_tpu_torch.bench_goto17 import SEED_BASE, mcf_kkt
     from smart_crossover_tpu_torch.data.mcf_gen import goto_like_mcf
     from smart_crossover_tpu_torch.solvers.pdhg_mcf import pdhg_mcf_device
 
     t0 = time.perf_counter()
-    mcf = goto_like_mcf(362, 362, extra_arc_factor=4, regular=True)
+    mcf = goto_like_mcf(362, 362, extra_arc_factor=4, regular=True,
+                        seed=SEED_BASE)
     gen_s = time.perf_counter() - t0
+    require(row["seed"] == SEED_BASE and row["nodes"] == mcf.m
+            and row["arcs"] == mcf.n, "goto17: the row ran another instance")
     kkt0 = mcf_kkt(mcf, np.zeros(mcf.n), np.zeros(mcf.m))
     with sparse_route_only():
         x1, y1, it1, _, _ = pdhg_mcf_device(mcf, tol=0.0, max_iters=250)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x, y, iters, conv, rt = pdhg_mcf_device(mcf, tol=0.0,
-                                                max_iters=5000)
-        wall = time.perf_counter() - t0
         counts = require_no_dense_pdhg(scx, "pdhg_mcf_device at GOTO-17")
     kkt1 = mcf_kkt(mcf, x1, y1)
-    kkt = mcf_kkt(mcf, x, y)
+    kkt = row["warm_kkt_rel"]
+    iters = row["warm_iters"]
     rec = {"phase": "pdhg_mcf_goto17", "nodes": mcf.m, "arcs": mcf.n,
-           "generate_s": gen_s, "iterations": iters, "converged": conv,
-           "wall_s": wall, "ms_per_iteration": wall * 1e3 / iters,
-           "kkt_rel_start": kkt0, "kkt_rel_250": kkt1, "kkt_rel_5000": kkt,
+           "generate_s": gen_s, "iterations": iters,
+           "converged": row["warm_converged"],
+           "wall_s": row["warm_steady_s"],
+           "ms_per_iteration": row["warm_ms_per_iteration"],
+           "kkt_rel_start": kkt0, "kkt_rel_250": kkt1, "kkt_rel_end": kkt,
            "launches": counts,
            "operators_halpern_1000": operator_ms(mcf, 1000)}
     emit(rec)
-    require(iters == 5000, f"pdhg_mcf_device stopped at {iters}")
-    require(bool(np.isfinite(x).all() and np.isfinite(y).all())
-            and all(np.isfinite(kkt)), "pdhg_mcf_device output not finite")
+    require(iters == 5000 or row["warm_converged"],
+            f"pdhg_mcf_device stopped at {iters} unconverged")
+    require(row["warm_finite"] and all(np.isfinite(kkt)),
+            "pdhg_mcf_device output not finite")
     require(kkt[0] < kkt0[0], f"primal residual {kkt[0]} not below its "
             f"start {kkt0[0]}")
     require(sum(kkt) < sum(kkt1), f"KKT score {sum(kkt)} not below the "
@@ -2195,13 +2247,16 @@ def main() -> int:
     kernels = [phase_k1(), phase_k2(scx)]
     counts, cobj, ips = phase_main(scx, 64, 256, 256, seed=0, reps=5)
     counts7, cobj7, ips7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
-    phase_bench(torch, {"ot_64x256x256": ips, "ot_16x784x784": ips7})
+    serve_row, goto_row = phase_bench(
+        torch, {"ot_64x256x256": ips, "ot_16x784x784": ips7})
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_784"] = counts7[k["name"]]
+        k["launches_serve_per_dispatch"] = \
+            serve_row["launches_per_dispatch"][k["name"]]
     nc_counts, k1_b1_ms, k1_b1_plain = phase_network_crossover(scx, cobj7[0])
     goto_fo, goto_warm, goto_x = phase_goto(scx)
-    goto17 = phase_goto17(scx)
+    goto17 = phase_goto17(scx, goto_row)
     exact = phase_tnet_exact(scx, cobj)
     engines = phase_device_engines(scx, cobj, cobj7)
     kernels[0].update(launches_network_crossover=nc_counts["sinkhorn_fused"],
@@ -2254,7 +2309,8 @@ def main() -> int:
         k["launches_sparse_first_order"] = {
             "solve_mcf_goto128": goto_fo[k["name"]],
             "pdhg_mcf_goto128": goto_warm[k["name"]],
-            "pdhg_mcf_goto17": goto17[k["name"]]}
+            "pdhg_mcf_goto17_250": goto17[k["name"]],
+            "goto17_cnet_mcf": goto_row["launches"][k["name"]]}
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.")

@@ -5,9 +5,10 @@
 
 Builds the kernels, runs the two main OT phases (their certified
 objectives are what the engine phases are held to), then
-network_crossover_goto128 (with the first-order routes), pdhg_mcf_goto17,
-device_engines and solve_ot_784, one JSON line each, as chip_smoke.py
-runs them; any failure exits non-zero.  Prints the card's nvidia-smi line
+network_crossover_goto128 (with the first-order routes), the bench's
+goto17_cnet_mcf row in a subprocess and pdhg_mcf_goto17 on its warm
+start, device_engines and solve_ot_784, one JSON line each, as
+chip_smoke.py runs them; any failure exits non-zero.  Prints the card's nvidia-smi line
 first.  Needs a CUDA card.
 """
 from __future__ import annotations
@@ -32,10 +33,11 @@ def main() -> int:
 
     print(cs.phase_env(torch, _build), flush=True)
     cs.phase_build(_build)
-    _, cobj = cs.phase_main(scx, 64, 256, 256, seed=0, reps=2)
-    _, cobj7 = cs.phase_main(scx, 16, 784, 784, seed=1, reps=2)
+    _, cobj, _ = cs.phase_main(scx, 64, 256, 256, seed=0, reps=2)
+    _, cobj7, _ = cs.phase_main(scx, 16, 784, 784, seed=1, reps=2)
     cs.phase_goto(scx)
-    cs.phase_goto17(scx)
+    goto, _ = cs.run_bench("--cell", "goto17_cnet_mcf")
+    cs.phase_goto17(scx, goto["detail"])
     cs.phase_device_engines(scx, cobj, cobj7)
     cs.phase_solve_ot(scx, cobj7[0])
     return 0

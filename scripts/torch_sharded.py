@@ -31,8 +31,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.phase_env(torch, _build), flush=True)
     cs.phase_build(_build)
-    _, cobj = cs.phase_main(scx, 64, 256, 256, seed=0, reps=1)
-    _, cobj7 = cs.phase_main(scx, 16, 784, 784, seed=1, reps=1)
+    _, cobj, _ = cs.phase_main(scx, 64, 256, 256, seed=0, reps=1)
+    _, cobj7, _ = cs.phase_main(scx, 16, 784, 784, seed=1, reps=1)
     cs.emit({"launches_sharded": cs.phase_sharded(scx, cobj, cobj7)})
     return 0
 

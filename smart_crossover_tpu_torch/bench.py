@@ -1,7 +1,8 @@
 """Benchmark: certified-exact batched OT crossover throughput on the card.
 
     python -m smart_crossover_tpu_torch bench [--device cpu] [--seed N]
-        [--cell ot_64x256x256|ot_16x784x784]
+        [--cell ot_64x256x256|ot_16x784x784|goto17_cnet_mcf|
+                serve_16x128x128x16]
 
 Port of the root ``bench.py``.  Each row runs the exact pipeline,
 ``batched_tnet_exact_device`` on its default 'mega' engine (the Sinkhorn
@@ -42,11 +43,19 @@ device, or a device objective more than 1e-4 from its certified one), and
 cpu``.  ``--device cpu`` runs the kernels' plain versions at the reduced
 shape 8 x 64^2 with no 784^2 row, tagged ``"backend": "cpu"``: a check
 of the command, not a measurement.
+
+Two more rows run only when named by ``--cell``, each printing its own
+records and then its own result line, with the same exit codes:
+``goto17_cnet_mcf`` (``bench_goto17.py``, ``scripts/run_goto17.py``'s
+flagship network crossover for seed 42 + N) and ``serve_16x128x128x16``
+(``bench_serving.py``, ``scripts/bench_serving.py``'s sustained serving
+shape, dispatch k on seed N + k).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -63,6 +72,10 @@ OBJ_RTOL = 1e-4       # device objective (float32 flows) vs certified (f64)
 CELLS = {"ot_64x256x256": (64, 256, 256, 0, 9, 2),
          "ot_16x784x784": (16, 784, 784, 1, 5, 1)}
 CPU_ROW = (8, 64, 64, 0, 9, 2)
+# rows run only when named, each by its own module (``SHAPE``, ``CPU_SHAPE``
+# in the same order, ``run_row``, ``records``, ``result``)
+OTHER_ROWS = {"goto17_cnet_mcf": "bench_goto17",
+              "serve_16x128x128x16": "bench_serving"}
 
 # the staged pass, in the pipeline's order
 STAGES = ("upload", "sinkhorn_kernel", "round_indicators", "boruvka_flow",
@@ -72,16 +85,26 @@ STAGES = ("upload", "sinkhorn_kernel", "round_indicators", "boruvka_flow",
 
 def make_batch(B, S, D, seed=0):
     """Generate in f64 (mass balance exact at certification precision);
-    the device consumes an f32 cast, the certifier/baseline the f64."""
+    the device consumes an f32 cast, the certifier/baseline the f64.
+
+    The grid of N points is side x N / side, side the largest divisor of
+    N at most sqrt(N): ``scripts/bench_serving.py``'s generator.  The root
+    ``bench.py``'s takes side = int(sqrt(N)) and runs only where that
+    divides N, and there the two batches are the same."""
     rng = np.random.default_rng(seed)
     s = rng.uniform(0.5, 2.0, (B, S))
     d = rng.uniform(0.5, 2.0, (B, D))
     d *= (s.sum(axis=1) / d.sum(axis=1))[:, None]
+
     # MNIST-like ground cost: L1 distances on a pixel grid
-    side_s = int(np.sqrt(S))
-    side_d = int(np.sqrt(D))
-    xs = np.stack(np.unravel_index(np.arange(S), (side_s, S // side_s)), -1)
-    xd = np.stack(np.unravel_index(np.arange(D), (side_d, D // side_d)), -1)
+    def grid(N):
+        side = int(np.sqrt(N))
+        while N % side:
+            side -= 1
+        return np.stack(np.unravel_index(np.arange(N), (side, N // side)),
+                        -1)
+
+    xs, xd = grid(S), grid(D)
     M0 = np.abs(xs[:, None, :] - xd[None, :, :]).sum(-1).astype(np.float64)
     M = M0[None, :, :] + rng.uniform(0, 0.1, (B, S, D))
     return s, d, M
@@ -225,7 +248,9 @@ def device_busy(fn, dev: torch.device) -> dict:
     """fn() once under ``torch.profiler`` on the card: the device's busy
     time (the union of its kernels' and copies' spans), the pass's wall
     time, the idle share and the eight kernels that took longest in all.
-    No device activity recorded reads "not measured"."""
+    No device activity recorded reads "not measured".  The profiler's raw
+    (kineto) events are read, not ``prof.events()``, whose event tree
+    takes minutes to build over the 10^5 launches of a long pass."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -237,23 +262,25 @@ def device_busy(fn, dev: torch.device) -> dict:
         _sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device activity, less the stage ranges' own device-side copies
-    acts = [e for e in prof.events()
-            if e.device_type == DeviceType.CUDA and e.name not in STAGES]
-    busy_us, end = 0.0, float("-inf")
-    for lo, hi in sorted((e.time_range.start, e.time_range.end)
-                         for e in acts):
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    if busy_us == 0:
+    acts = [(e.name(), e.start_ns(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and e.name() not in STAGES]
+    busy_ns, end = 0, float("-inf")
+    for lo, dur in sorted((lo, dur) for _, lo, dur in acts):
+        if lo + dur > end:
+            busy_ns += lo + dur - max(lo, end)
+            end = lo + dur
+    if busy_ns == 0:
         return {"device_busy_ms": "not measured"}
     by_name = {}
-    for e in acts:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, _, dur in acts:
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + dur / 1e6, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"device_busy_ms": busy_us / 1e3, "profiled_wall_ms": wall_ms,
-            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+    return {"device_busy_ms": busy_ns / 1e6, "profiled_wall_ms": wall_ms,
+            "device_idle_share": 1.0 - busy_ns / 1e6 / wall_ms,
+            "device_events": len(acts),
             "top_device_ms": [{"name": n[:80], "ms": ms, "count": c}
                               for n, (ms, c) in top]}
 
@@ -352,14 +379,21 @@ def run_row(cell: str, B: int, S: int, D: int, seed: int, reps: int,
     if dev.type == "cuda":
         row["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(
             dev)
-        prof = device_busy(lambda: stage_split(s, d, M, device=dev), dev)
-        if "profiled_wall_ms" in prof:
-            # the profiler slows the host loops, not the device: the same
-            # busy time over the unprofiled staged pass's wall time
-            prof["device_idle_share_unprofiled"] = (
-                1.0 - prof["device_busy_ms"] / sum(stage_ms.values()))
-        row["staged_pass_profile"] = prof
+        row["staged_pass_profile"] = staged_pass_profile(s, d, M, stage_ms,
+                                                         dev)
     return row
+
+
+def staged_pass_profile(s, d, M, stage_ms: dict, dev: torch.device) -> dict:
+    """A second staged pass under ``torch.profiler`` (``device_busy``);
+    ``stage_ms`` is the unprofiled pass's split."""
+    prof = device_busy(lambda: stage_split(s, d, M, device=dev), dev)
+    if "profiled_wall_ms" in prof:
+        # the profiler slows the host loops, not the device: the same
+        # busy time over the unprofiled staged pass's wall time
+        prof["device_idle_share_unprofiled"] = (
+            1.0 - prof["device_busy_ms"] / sum(stage_ms.values()))
+    return prof
 
 
 def card(dev: torch.device) -> dict:
@@ -383,14 +417,35 @@ def add_arguments(p: argparse.ArgumentParser) -> None:
                         "2) or cpu: the plain versions at 8 x 64^2, a "
                         "check of the command, not a measurement")
     p.add_argument("--seed", type=int, default=0,
-                   help="ot_64x256x256's seed; ot_16x784x784 takes seed + 1")
-    p.add_argument("--cell", choices=sorted(CELLS), default=None,
-                   help="run one row (default: both)")
+                   help="ot_64x256x256's seed; ot_16x784x784 takes seed + "
+                        "1, goto17_cnet_mcf 42 + seed, serve_16x128x128x16 "
+                        "seed + k for dispatch k")
+    p.add_argument("--cell", choices=sorted(CELLS) + sorted(OTHER_ROWS),
+                   default=None,
+                   help="run one row (default: both OT rows; the other "
+                        "rows run only when named)")
+
+
+def _on_cpu(args) -> bool:
+    return args.device is not None and torch.device(args.device).type == "cpu"
+
+
+def _row_module(cell: str):
+    return importlib.import_module(
+        f"smart_crossover_tpu_torch.{OTHER_ROWS[cell]}")
 
 
 def rows_to_run(args) -> list:
-    """(cell, B, S, D, seed, reps, baseline instances) of each row."""
-    if args.device is not None and torch.device(args.device).type == "cpu":
+    """(cell, B, S, D, seed, reps, baseline instances) of each row; for
+    goto17_cnet_mcf (cell, 1, width, height, seed, warm iterations, 1),
+    for serve_16x128x128x16 (cell, B, S, D, first seed, dispatches,
+    baseline instances)."""
+    if args.cell in OTHER_ROWS:
+        mod = _row_module(args.cell)
+        B, S, D, offset, reps, n_base = (mod.CPU_SHAPE if _on_cpu(args)
+                                         else mod.SHAPE)
+        return [(args.cell, B, S, D, args.seed + offset, reps, n_base)]
+    if _on_cpu(args):
         if args.cell == "ot_16x784x784":
             raise SystemExit("bench: --device cpu runs one reduced row "
                              "(8 x 64^2); ot_16x784x784 runs on the card")
@@ -424,6 +479,8 @@ def run(args) -> int:
         _build.library()
         setup = {"kernel_library_s": time.perf_counter() - t0,
                  "kernels_compiled_now": _build.build_seconds is not None}
+    if args.cell in OTHER_ROWS:
+        return run_other(args, dev, setup)
     rows = [run_row(*r, dev=dev) for r in rows_to_run(args)]
     for r in rows:          # the per-stage records, before the result
         print(json.dumps({"staged_pass": r["cell"], "stage_ms": r["stage_ms"],
@@ -447,6 +504,23 @@ def run(args) -> int:
         "detail": detail,
     }), flush=True)
     return 0 if all(r["correct"] for r in rows) else 1
+
+
+def run_other(args, dev: torch.device, setup: dict) -> int:
+    """A row of ``OTHER_ROWS``: its records, then its result line; the
+    exit code."""
+    (row_args,) = rows_to_run(args)
+    mod = _row_module(args.cell)
+    row = mod.run_row(*row_args, dev=dev)
+    for rec in mod.records(row):
+        print(json.dumps(rec), flush=True)
+    detail = {"backend": dev.type, **card(dev), **setup}
+    if dev.type == "cpu":
+        detail["fallback"] = False
+        detail["note"] = ("CPU run at reduced shape - NOT comparable to the "
+                          "card's headline")
+    print(json.dumps(mod.result(row, detail)), flush=True)
+    return 0 if row["correct"] else 1
 
 
 def main(argv=None) -> int:

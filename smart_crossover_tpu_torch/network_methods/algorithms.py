@@ -59,7 +59,9 @@ def network_crossover(x: np.ndarray,
             CUDA card by default; without one that default raises).
         stats: a dict to fill with the run's counts and host seconds:
             ``ranking_s``, ``tree_basis_s``, ``push_iters``, ``cg_rounds``,
-            ``cg_pivots``, ``cg_s`` and ``direct_solve`` (the fallback ran).
+            ``subproblem_s`` (the network simplex's seconds inside the
+            column generation), ``cg_pivots``, ``cg_s`` and
+            ``direct_solve`` (the fallback ran).
 
     Returns:
         Output with the vertex solution, combined runtime, and the total
@@ -166,7 +168,8 @@ def column_generation(net_manager: NetworkManager,
     Frees the next slice of the sorted flow queue, re-solves the subproblem
     warm-started from the recovered basis, and doubles the target size until
     the full-problem optimality condition holds.  ``stats``, if given, gets
-    the number of rounds as ``cg_rounds``.
+    the number of rounds as ``cg_rounds`` and the subproblem solves'
+    seconds as ``subproblem_s``.
     """
     if solver_settings is None:
         solver_settings = SolverSettings(log_console=0)
@@ -182,6 +185,7 @@ def column_generation(net_manager: NetworkManager,
     iters = 0
     status = "OPTIMAL"
     cg_round = 0
+    sub_s = 0.0
 
     while True:
         if left >= len(queue):
@@ -197,6 +201,7 @@ def column_generation(net_manager: NetworkManager,
         obj_val = net_manager.recover_obj_val(sub_output.obj_val)
         timer.accumulate(sub_output.runtime)
         timer.start()
+        sub_s += sub_output.runtime.total_seconds()
 
         net_manager.set_basis(
             net_manager.recover_basis_from_sub_basis(sub_output.basis))
@@ -216,5 +221,6 @@ def column_generation(net_manager: NetworkManager,
     timer.stop()
     if stats is not None:
         stats["cg_rounds"] = cg_round
+        stats["subproblem_s"] = sub_s
     return Output(x=x, obj_val=obj_val, runtime=timer.total,
                   iter_count=iters, basis=net_manager.basis, status=status)

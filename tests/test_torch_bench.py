@@ -106,10 +106,20 @@ def test_stage_split_runs_the_pipeline():
     ([], {"SCX_BENCH_SKIP_784": "1"}, [("ot_64x256x256", 64, 0, 9, 2)]),
     (["--device", "cpu", "--seed", "3"], {},
      [("ot_64x256x256", 8, 3, 9, 2)]),
+    (["--cell", "serve_16x128x128x16", "--seed", "1"], {},
+     [("serve_16x128x128x16", 16, 1, 16, 2)]),
+    (["--cell", "serve_16x128x128x16", "--seed", "4", "--device", "cpu"],
+     {}, [("serve_16x128x128x16", 4, 4, 3, 2)]),
+    (["--cell", "goto17_cnet_mcf"], {"SCX_BENCH_SKIP_784": "1"},
+     [("goto17_cnet_mcf", 1, 42, 5000, 1)]),
+    (["--cell", "goto17_cnet_mcf", "--seed", "2", "--device", "cpu"], {},
+     [("goto17_cnet_mcf", 1, 44, 500, 1)]),
 ])
 def test_rows(argv, env, want, monkeypatch):
     """The rows a command line runs: the root bench.py's shapes, seeds,
-    reps and baseline instances by default; the CPU's reduced row."""
+    reps and baseline instances by default; the CPU's reduced row; a row
+    that runs only when named (serving: dispatches for reps; GOTO-17: one
+    instance, seed 42 + N, 5000 warm iterations)."""
     monkeypatch.delenv("SCX_BENCH_SKIP_784", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -117,6 +127,8 @@ def test_rows(argv, env, want, monkeypatch):
     bench.add_arguments(ap)
     rows = bench.rows_to_run(ap.parse_args(argv))
     assert [(r[0], r[1], r[4], r[5], r[6]) for r in rows] == want
+    if argv[:2] == ["--cell", "goto17_cnet_mcf"]:   # the torus's width
+        assert rows[0][2] == rows[0][3] == (16 if "cpu" in argv else 362)
 
 
 def test_cpu_refuses_the_784_row():
