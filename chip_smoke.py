@@ -30,9 +30,16 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           same card; its certified instances/s beside main's; then, each in
           its own subprocess, `bench --cell serve_16x128x128x16` (rc 0,
           256/256 certified and optimal on the card, K1 and K2 once per
-          dispatch) and `bench --cell goto17_cnet_mcf` (rc 0, CNET_MCF
-          from the card's PDHG warm start equal to the cold native core
-          to 1e-8 (1 + |obj|), no dense PDHG kernel), each on this card;
+          dispatch), `bench --cell goto17_cnet_mcf` and `--cell
+          goto17_irregular_cnet_mcf` (rc 0, the degree-regular and the
+          irregular GOTO-17 class, CNET_MCF from the card's PDHG warm
+          start equal to the cold native core to 1e-8 (1 + |obj|), no
+          dense PDHG kernel) and `bench --cell ipm_stair_10000x36975`
+          (rc 0, the sparse staircase LP through ipm_big: both solves
+          OPTIMAL with the float32 device stage on the card and the
+          device endgame engaged, the host f64 certificate on the true
+          bounds within 1e-8, the host sparse barrier's objective to
+          1e-7), each on this card;
   network_crossover_784x784
           the paper's front door on instance 0 of the 16 x 784^2 batch:
           sinkhorn(ot) through K1 (one launch, B = 1, against its plain
@@ -84,9 +91,10 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           from the warm start to an exact vertex, equal to HiGHS to 1e-8;
   main_lp_fleet_32x64x256, main_lp_fleet_64x256x512
           batched_lp_crossover(warm_engine="pdhg"): every instance optimal
-          and equal to HiGHS to 1e-8 (at 64 x 256 x 512 the first 32
-          instances are crossed over: the host crossover took 188-344 s
-          of the script's 1200 s; K5 is timed on all 64);
+          and equal to HiGHS to 1e-8 (at 64 x 256 x 512 the first 8
+          instances are crossed over, a cut of depth for time: the host
+          crossover of all 64 took 188-344 s of the script's 1200 s, of 32
+          94 s; K5 is timed on all 64);
   lp_front_door_512x2048
           the LP front door: solve_lp(method="first_order") on the single
           LP as a GeneralLP, tol 1e-4, adaptive: OPTIMAL, K3 launched,
@@ -118,6 +126,19 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           'parent' (K1 once, K2 never) and with 'mega' (K1 and K2 once
           each), both OPTIMAL and equal to main_16x784x784's certified
           objective to 1e-9;
+  drivers the paper's experiment drivers, scripts/torch_run_network_
+          crossover.py and scripts/torch_run_perturb_crossover.py, through
+          their functions, their result stores in a temporary directory
+          outside the repo: `total` mode on the network script's first
+          MNIST-like pair (28 x 28 images, 199 x 224 nonzero pixels: the
+          cold network simplex, sinkhorn(ot) with K1 launched exactly once
+          at B = 1, TNET and CNET_OT) and on a GOTO-128 .min file written
+          there (solve_mcf(first_order), the sparse PDHG, then CNET_MCF),
+          `crossover` mode on the same pair (the host barrier with
+          crossover, then TNET and CNET_OT from its interior point), and
+          the perturbation protocol (HiGHS, ptb, ori) on one small
+          staircase; every record OPTIMAL, each crossover equal to its
+          baseline record to 1e-9;
   sharded the multi-device layer at world size 1 on NCCL (one card), each
           sharded call held against the port's unsharded counterpart:
           sharded_batched_tnet_exact_device at 64 x 256^2 with 'mega' (K1
@@ -143,7 +164,9 @@ bound: the largest of the operations these inputs need at the card's
 float32 peak, the bytes it must move at the HBM rate and, for K1, the
 exps at the MUFU rate, 16 per clock per SM at the card's max SM clock;
 K1 and K2 add their launches on the sharded routes and per serving
-dispatch, K3-K5 on the GOTO-17 row) and, last,
+dispatch, K1 in the drivers' `total` mode on its OT pair, K3-K5 on both GOTO-17
+rows and the drivers' GOTO-128 `total` run, each kernel on the staircase
+row) and, last,
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.  It imports nothing of JAX.
 """
@@ -181,6 +204,10 @@ F64_RATIO, F64_FLOOR = 4.0, 1e-5
 # bits, so only the step-weighted averages are compared, loosely.
 K5_LONG_AVG_RTOL = 5e-2
 LP_OBJ_RTOL = 1e-8      # exact vertex vs HiGHS
+# the benchmark's rows that run only when named, each once in the bench
+# phase
+NAMED_ROWS = ("serve_16x128x128x16", "goto17_cnet_mcf",
+              "goto17_irregular_cnet_mcf", "ipm_stair_10000x36975")
 EXACT_RTOL = 1e-9       # network crossover / exact OT routes vs the
                         # certified or HiGHS objective (all f64 host)
 GOTO_FOM_TOL = 1e-3     # solve_mcf(first_order)'s PDHG tolerance (float32
@@ -504,11 +531,15 @@ def phase_bench(torch, main_ips):
     size: rc 0, both rows correct and certified, K1 and K2 launched once
     per timed call, on this card.  `main_ips`: main_*'s certified
     instances/s by row, printed beside the bench's.  Then each row that
-    runs only when named, once: serve_16x128x128x16 (256/256 certified,
-    all optimal on the card, K1 and K2 once per dispatch) and
-    goto17_cnet_mcf (CNET_MCF equal to the cold native core, the warm
-    start on the card with no dense PDHG kernel).  Returns those two
-    rows' details."""
+    runs only when named (``NAMED_ROWS``), once: serve_16x128x128x16
+    (256/256 certified, all optimal on the card, K1 and K2 once per
+    dispatch), goto17_cnet_mcf and goto17_irregular_cnet_mcf (CNET_MCF
+    equal to the cold native core, the warm start on the card with no
+    dense PDHG kernel) and ipm_stair_10000x36975 (both ipm_big solves
+    OPTIMAL with the device stage on the card and the device endgame
+    engaged, the f64 certificate on the true bounds, the host sparse
+    barrier's objective to 1e-7).  Returns those rows' details by
+    cell."""
     res, seconds = run_bench()
     rows = {"ot_64x256x256": res["detail"],
             "ot_16x784x784": res["detail"]["mnist_784"]}
@@ -529,7 +560,7 @@ def phase_bench(torch, main_ips):
                 and per["transport_simplex_mega"] == 1,
                 f"bench {c}: K1/K2 launches per call {per}")
     rows = {}
-    for cell in ("serve_16x128x128x16", "goto17_cnet_mcf"):
+    for cell in NAMED_ROWS:
         res, seconds = run_bench("--cell", cell)
         row = rows[cell] = res["detail"]
         emit({"phase": f"bench_{cell}", "seconds": seconds, "result": res})
@@ -545,14 +576,25 @@ def phase_bench(torch, main_ips):
             f"serving: {serve['n_certified']}/256 certified")
     require(per["sinkhorn_fused"] == 1 and per["transport_simplex_mega"] == 1,
             f"serving: K1/K2 launches per dispatch {per}")
-    goto = rows["goto17_cnet_mcf"]
-    require(goto["cold_status"] == goto["crossover_status"] == "OPTIMAL"
-            and goto["obj_match"], "goto17: CNET_MCF off the cold core")
-    require(not any(goto["launches"][k] for k in ("pdhg_chunk",
-                                                   "halpern_chunk",
-                                                   "pdhg_batched")),
-            f"goto17 launched a dense PDHG kernel: {goto['launches']}")
-    return serve, goto
+    for cell in ("goto17_cnet_mcf", "goto17_irregular_cnet_mcf"):
+        goto = rows[cell]
+        require(goto["cold_status"] == goto["crossover_status"] == "OPTIMAL"
+                and goto["obj_match"], f"{cell}: CNET_MCF off the cold core")
+        require(goto["regular"] is (cell == "goto17_cnet_mcf"),
+                f"{cell}: regular={goto['regular']}")
+        require(not any(goto["launches"][k] for k in ("pdhg_chunk",
+                                                       "halpern_chunk",
+                                                       "pdhg_batched")),
+                f"{cell} launched a dense PDHG kernel: {goto['launches']}")
+    stair = rows["ipm_stair_10000x36975"]
+    require(all(r["status"] == "OPTIMAL" and r["device_iters"] > 0
+                and r["ne_stats"] is not None for r in stair["solves"])
+            and stair["device_stage_on"] == "cuda",
+            f"ipm_stair: {[r['status'] for r in stair['solves']]}")
+    require(stair["obj_rel_to_baseline"] <= 1e-7
+            and stair["certificate"]["on_wide_box"] == 0,
+            f"ipm_stair: {stair['certificate']}")
+    return rows
 
 
 # ------------------------------------------------------ network crossover
@@ -1693,19 +1735,14 @@ def ipm_big_lp(m, n, seed=0):
 
 
 def lp_certificate(A, b, c, l, u, x, y):
-    """Host f64 certificate of a primal-dual pair on a boxed LP: the
-    relative primal residual, the box violation, and the relative gap when
-    the reduced costs c - A'y split into bound duals zl = max(rc, 0),
-    zu = max(-rc, 0) (dual feasible by construction)."""
-    pres = float(np.linalg.norm(A @ x - b) / (1.0 + np.linalg.norm(b)))
-    box = float(max((l - x).max(), (x - u).max(), 0.0))
-    rc = c - A.T @ y
-    zl, zu = np.maximum(rc, 0.0), np.maximum(-rc, 0.0)
-    pobj = float(c @ x)
-    dobj = float(b @ y + l @ zl - u @ zu)
-    gap = abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
-    return {"primal_residual": pres, "box_violation": box, "gap": gap,
-            "primal_obj": pobj, "dual_obj": dobj}
+    """Host f64 certificate of a primal-dual pair, infinite and free
+    bounds allowed (``bench_ipm_stair.lp_certificate``, also the staircase
+    row's): the relative primal residual, the bound violation, the
+    relative dual infeasibility (reduced costs facing an infinite bound),
+    the relative gap, and the columns sitting on the IPMs' wide box."""
+    from smart_crossover_tpu_torch.bench_ipm_stair import lp_certificate
+
+    return lp_certificate(A, b, c, l, u, x, y)
 
 
 def ne_record(stats):
@@ -1884,8 +1921,10 @@ def phase_ipm_device(scx, fleet_rec, big=IPM_BIG, ipm_fleet_shape=IPM_FLEET,
                 f"ipm_big ({route}): the device endgame did not engage")
         require(res.status == "OPTIMAL", f"ipm_big ({route}): {res.status}")
         require(cert["primal_residual"] <= IPM_CERT_TOL
-                and cert["box_violation"] <= IPM_CERT_TOL
-                and cert["gap"] <= IPM_CERT_TOL,
+                and cert["bound_violation"] <= IPM_CERT_TOL
+                and cert["dual_infeasibility"] <= IPM_CERT_TOL
+                and cert["gap"] <= IPM_CERT_TOL
+                and cert["on_wide_box"] == 0,
                 f"ipm_big ({route}) certificate: {cert}")
     rec[f"ipm_big_{m}x{n}"] = runs
 
@@ -2230,6 +2269,115 @@ def phase_sharded(scx, cobj, cobj7, goto_x=None):
     return counts
 
 
+# ------------------------------------------------- the experiment drivers
+
+def _driver(name):
+    """scripts/<name>.py as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_driver_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _store_check(store, base: str, what: str) -> dict:
+    """Every record of a driver's store OPTIMAL, every other method equal
+    to the instance's ``base`` record to EXACT_RTOL (HiGHS's objective to
+    LP_OBJ_RTOL); the records by method."""
+    rows = {r["method"]: r for r in store.rows()}
+    require(rows and all(r["status"] == "OPTIMAL" for r in rows.values()),
+            f"{what}: {[(m, r['status']) for m, r in rows.items()]}")
+    ref = rows[base]["obj_val"]
+    for m, r in rows.items():
+        rtol = LP_OBJ_RTOL if m == "highs" else EXACT_RTOL
+        require(abs(r["obj_val"] - ref) <= rtol * max(1.0, abs(ref)),
+                f"{what}: {m} {r['obj_val']} against {base} {ref}")
+    return {m: {"obj": r["obj_val"], "s": r.get("runtime"),
+                "iters": r.get("iter_count")} for m, r in rows.items()}
+
+
+def phase_drivers(scx):
+    """The paper's experiment drivers (scripts/torch_run_network_crossover.py,
+    scripts/torch_run_perturb_crossover.py) through their own functions,
+    their stores in a temporary directory outside the repo: `total` mode
+    on the network script's first MNIST-like pair (28 x 28 images, 784 pixels a
+    side, 199 x 224 after the zero pixels are dropped; the Sinkhorn
+    kernel once, B = 1) and on a GOTO-128 .min file
+    (solve_mcf(first_order), the sparse PDHG), `crossover` mode on the
+    same pair (the host barrier), and the perturbation protocol with its
+    HiGHS oracle on one small staircase.  Every record OPTIMAL, each
+    crossover equal to its baseline to 1e-9."""
+    import tempfile
+
+    from smart_crossover_tpu_torch.data import (
+        ResultStore,
+        goto_like_mcf,
+        mnist_like_ot_suite,
+        write_dimacs_min,
+    )
+    from smart_crossover_tpu_torch.data.lp_gen import optlp_scale_suite
+    from smart_crossover_tpu_torch.solvers.settings import SolverSettings
+
+    t_phase = time.perf_counter()
+    net = _driver("torch_run_network_crossover")
+    ptb = _driver("torch_run_perturb_crossover")
+    settings = SolverSettings(log_console=0, simplexPricing="SE")
+    methods = ["tnet", "cnet_ot", "cnet_mcf"]
+    rec = {"phase": "drivers"}
+    with tempfile.TemporaryDirectory(prefix="scx_drivers_") as tmp:
+        (ot,) = mnist_like_ot_suite(num_pairs=1)
+        store = ResultStore(os.path.join(tmp, "total_ot.jsonl"))
+        _, counts, seconds = _launched(scx, lambda: net.run_total(
+            ot.name, ot, methods, store, settings, device=DEVICE))
+        require(counts["sinkhorn_fused"] == 1,
+                f"total mode: K1 launched {counts['sinkhorn_fused']} times")
+        rec["total_ot_28x28"] = {
+            "instance": ot.name, "shape": list(ot.M.shape), "s": seconds,
+            "launches": counts,
+            "records": _store_check(store, "cold_network_simplex",
+                                    "total mode, OT")}
+
+        data = os.path.join(tmp, "mcf")
+        os.makedirs(data)
+        write_dimacs_min(goto_like_mcf(128, 128, extra_arc_factor=4, seed=0,
+                                       regular=True),
+                         os.path.join(data, "goto128.min"))
+        ((name, mcf),) = net.load_instances("mcf", net.Path(data), 0)
+        store = ResultStore(os.path.join(tmp, "total_mcf.jsonl"))
+        _, counts, seconds = _launched(scx, lambda: net.run_total(
+            name, mcf, methods, store, settings, device=DEVICE))
+        rec["total_goto128"] = {
+            "instance": name, "arcs": mcf.n, "s": seconds,
+            "launches": counts,
+            "records": _store_check(store, "cold_network_simplex",
+                                    "total GOTO-128")}
+
+        store = ResultStore(os.path.join(tmp, "crossover_ot.jsonl"))
+        _, counts, seconds = _launched(scx, lambda: net.run_instance(
+            ot.name, ot, methods, store, settings, 1e-4, device=DEVICE))
+        rec["crossover_ot_28x28"] = {
+            "instance": ot.name, "s": seconds, "launches": counts,
+            "records": _store_check(store, "barrier_crossover",
+                                    "crossover mode")}
+
+        lps = optlp_scale_suite(num_per_family=1, scale=0.02,
+                                families=("stair",))
+        store = ResultStore(os.path.join(tmp, "perturb.jsonl"))
+        t0 = time.perf_counter()
+        ptb.run_suite([(lp.name, (lambda _lp=lp: _lp)) for lp in lps],
+                      store, 1e-10, 1e-6, oracle=True, device=DEVICE)
+        rec["perturb"] = {
+            "instance": lps[0].name, "shape": list(lps[0].A.shape),
+            "s": time.perf_counter() - t0,
+            "records": _store_check(store, "ori", "perturbation")}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2247,8 +2395,10 @@ def main() -> int:
     kernels = [phase_k1(), phase_k2(scx)]
     counts, cobj, ips = phase_main(scx, 64, 256, 256, seed=0, reps=5)
     counts7, cobj7, ips7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
-    serve_row, goto_row = phase_bench(
-        torch, {"ot_64x256x256": ips, "ot_16x784x784": ips7})
+    named = phase_bench(torch, {"ot_64x256x256": ips,
+                                "ot_16x784x784": ips7})
+    serve_row = named["serve_16x128x128x16"]
+    goto_row = named["goto17_cnet_mcf"]
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_784"] = counts7[k["name"]]
@@ -2274,10 +2424,10 @@ def main() -> int:
     single, single_ref = phase_lp_single(scx, 512, 2048, seed=7)
     fleet, _, fleet_rec = phase_lp_fleet(scx, 32, 64, 256, seed=5, reps=5)
     # the 64 x 256 x 512 fleet's host crossover took 188-344 s by call:
-    # its first 32 instances are crossed over (K5 runs at 32 there and is
+    # its first 8 instances are crossed over (K5 runs at 8 there and is
     # timed at all 64)
     fleet_big, big_ms, _ = phase_lp_fleet(scx, 64, 256, 512, seed=6,
-                                          reps=3, n_cross=32)
+                                          reps=3, n_cross=8)
     kernels[2]["launches"] = single["adaptive"]["pdhg_chunk"]
     kernels[3]["launches"] = single["halpern"]["halpern_chunk"]
     kernels[4]["launches"] = fleet["pdhg_batched"]
@@ -2300,6 +2450,9 @@ def main() -> int:
             ot_counts["device_simplex"][k["name"]]
     kernels[0]["launches_solve_ot_sinkhorn"] = \
         ot_counts["sinkhorn"]["sinkhorn_fused"]
+    drivers = phase_drivers(scx)
+    kernels[0]["launches_drivers_total_ot"] = \
+        drivers["total_ot_28x28"]["launches"]["sinkhorn_fused"]
     sharded = phase_sharded(scx, cobj, cobj7, goto_x)
     for k in kernels[:2]:
         for route, cnt in sharded.items():
@@ -2310,7 +2463,15 @@ def main() -> int:
             "solve_mcf_goto128": goto_fo[k["name"]],
             "pdhg_mcf_goto128": goto_warm[k["name"]],
             "pdhg_mcf_goto17_250": goto17[k["name"]],
-            "goto17_cnet_mcf": goto_row["launches"][k["name"]]}
+            "goto17_cnet_mcf": goto_row["launches"][k["name"]],
+            "goto17_irregular_cnet_mcf":
+                named["goto17_irregular_cnet_mcf"]["launches"][k["name"]],
+            "drivers_total_goto128":
+                drivers["total_goto128"]["launches"][k["name"]]}
+    # the staircase LP's barrier runs cuBLAS and cuSOLVER, no kernel
+    for k in kernels:
+        k["launches_ipm_stair"] = \
+            named["ipm_stair_10000x36975"]["launches"][k["name"]]
 
     bad = [m for m in sys.modules
            if m == "jax" or m.startswith("jax.")

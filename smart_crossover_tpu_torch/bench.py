@@ -2,7 +2,8 @@
 
     python -m smart_crossover_tpu_torch bench [--device cpu] [--seed N]
         [--cell ot_64x256x256|ot_16x784x784|goto17_cnet_mcf|
-                serve_16x128x128x16]
+                goto17_irregular_cnet_mcf|serve_16x128x128x16|
+                ipm_stair_10000x36975 [--oracle]]
 
 Port of the root ``bench.py``.  Each row runs the exact pipeline,
 ``batched_tnet_exact_device`` on its default 'mega' engine (the Sinkhorn
@@ -44,12 +45,16 @@ cpu``.  ``--device cpu`` runs the kernels' plain versions at the reduced
 shape 8 x 64^2 with no 784^2 row, tagged ``"backend": "cpu"``: a check
 of the command, not a measurement.
 
-Two more rows run only when named by ``--cell``, each printing its own
+Four more rows run only when named by ``--cell``, each printing its own
 records and then its own result line, with the same exit codes:
-``goto17_cnet_mcf`` (``bench_goto17.py``, ``scripts/run_goto17.py``'s
-flagship network crossover for seed 42 + N) and ``serve_16x128x128x16``
-(``bench_serving.py``, ``scripts/bench_serving.py``'s sustained serving
-shape, dispatch k on seed N + k).
+``goto17_cnet_mcf`` and ``goto17_irregular_cnet_mcf``
+(``bench_goto17.py``, ``scripts/run_goto17.py``'s flagship network
+crossover for seed 42 + N, on its degree-regular and its irregular
+class), ``serve_16x128x128x16`` (``bench_serving.py``,
+``scripts/bench_serving.py``'s sustained serving shape, dispatch k on
+seed N + k) and ``ipm_stair_10000x36975`` (``bench_ipm_stair.py``,
+``scripts/bench_ipm_sparse_big.py``'s sparse staircase LP through
+``ipm_big``; ``--oracle`` adds the script's HiGHS solve).
 """
 from __future__ import annotations
 
@@ -73,9 +78,12 @@ CELLS = {"ot_64x256x256": (64, 256, 256, 0, 9, 2),
          "ot_16x784x784": (16, 784, 784, 1, 5, 1)}
 CPU_ROW = (8, 64, 64, 0, 9, 2)
 # rows run only when named, each by its own module (``SHAPE``, ``CPU_SHAPE``
-# in the same order, ``run_row``, ``records``, ``result``)
+# in the same order, ``run_row``, ``records``, ``result``; ``OPTIONS``: the
+# command-line options its ``run_row`` takes as keywords)
 OTHER_ROWS = {"goto17_cnet_mcf": "bench_goto17",
-              "serve_16x128x128x16": "bench_serving"}
+              "goto17_irregular_cnet_mcf": "bench_goto17",
+              "serve_16x128x128x16": "bench_serving",
+              "ipm_stair_10000x36975": "bench_ipm_stair"}
 
 # the staged pass, in the pipeline's order
 STAGES = ("upload", "sinkhorn_kernel", "round_indicators", "boruvka_flow",
@@ -168,6 +176,15 @@ def cpu_reference_pipeline(s, d, M, reg=0.05, sinkhorn_iters=200):
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def synced(fn, dev: torch.device):
+    """(fn(), its seconds between two device syncs)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
 
 
 def stage_split(s, d, M, reg: float = REG,
@@ -418,12 +435,16 @@ def add_arguments(p: argparse.ArgumentParser) -> None:
                         "check of the command, not a measurement")
     p.add_argument("--seed", type=int, default=0,
                    help="ot_64x256x256's seed; ot_16x784x784 takes seed + "
-                        "1, goto17_cnet_mcf 42 + seed, serve_16x128x128x16 "
-                        "seed + k for dispatch k")
+                        "1, the goto17 rows 42 + seed, serve_16x128x128x16 "
+                        "seed + k for dispatch k, ipm_stair_10000x36975 "
+                        "seed")
     p.add_argument("--cell", choices=sorted(CELLS) + sorted(OTHER_ROWS),
                    default=None,
                    help="run one row (default: both OT rows; the other "
                         "rows run only when named)")
+    p.add_argument("--oracle", action="store_true",
+                   help="ipm_stair_10000x36975: also solve with scipy HiGHS "
+                        "(minutes at full size)")
 
 
 def _on_cpu(args) -> bool:
@@ -437,9 +458,10 @@ def _row_module(cell: str):
 
 def rows_to_run(args) -> list:
     """(cell, B, S, D, seed, reps, baseline instances) of each row; for
-    goto17_cnet_mcf (cell, 1, width, height, seed, warm iterations, 1),
+    the goto17 rows (cell, 1, width, height, seed, warm iterations, 1),
     for serve_16x128x128x16 (cell, B, S, D, first seed, dispatches,
-    baseline instances)."""
+    baseline instances), for ipm_stair_10000x36975 (cell, periods, rows
+    and columns per period, seed, solves, baseline runs)."""
     if args.cell in OTHER_ROWS:
         mod = _row_module(args.cell)
         B, S, D, offset, reps, n_base = (mod.CPU_SHAPE if _on_cpu(args)
@@ -511,7 +533,8 @@ def run_other(args, dev: torch.device, setup: dict) -> int:
     exit code."""
     (row_args,) = rows_to_run(args)
     mod = _row_module(args.cell)
-    row = mod.run_row(*row_args, dev=dev)
+    opts = {k: getattr(args, k) for k in getattr(mod, "OPTIONS", ())}
+    row = mod.run_row(*row_args, dev=dev, **opts)
     for rec in mod.records(row):
         print(json.dumps(rec), flush=True)
     detail = {"backend": dev.type, **card(dev), **setup}

@@ -2,11 +2,16 @@
 
     python -m smart_crossover_tpu_torch bench --cell goto17_cnet_mcf
         [--seed N] [--device cpu]
+    python -m smart_crossover_tpu_torch bench --cell
+        goto17_irregular_cnet_mcf [--seed N] [--device cpu]
 
 Port of ``scripts/run_goto17.py`` for one seed: the paper's flagship
 network scale (the reference runs ``goto_17_8*``),
-``goto_like_mcf(362, 362, extra_arc_factor=4, seed=42 + N,
-regular=True)``, 131,044 nodes and 786,264 arcs.  The instance is written
+``goto_like_mcf(362, 362, extra_arc_factor=4, seed=42 + N, regular=)``,
+131,044 nodes: ``goto17_cnet_mcf`` runs the degree-regular class
+(``regular=True``, the script's default; 786,264 arcs),
+``goto17_irregular_cnet_mcf`` the irregular one (the script's
+``regular=0``; the arc count varies by seed).  The instance is written
 to a DIMACS ``.min`` file in a temporary directory (deleted afterwards)
 and read back; every solver sees the instance read back.  Then, as the
 script does:
@@ -23,8 +28,9 @@ script does:
    (the ranking on the card in float32, column generation and the native
    network simplex on the host in f64).
 
-Headline: ``seconds_to_exact_vertex_goto17`` = steady warm start +
-crossover (the script's ``geo_e2e_steady_s`` for one seed); vs_baseline =
+Headline: ``seconds_to_exact_vertex_goto17`` (``..._goto17_irregular`` on
+the irregular class) = steady warm start + crossover (the script's
+``geo_e2e_steady_s`` for one seed); vs_baseline =
 cold core / headline.  Correct when the cold core and CNET_MCF are both
 OPTIMAL, their objectives agree to 1e-8 (1 + |cold|), the warm start is
 finite, and no dense PDHG kernel (K3, K4, K5) was launched.  ``--device
@@ -43,6 +49,7 @@ import torch
 from smart_crossover_tpu_torch import bench
 
 CELL = "goto17_cnet_mcf"
+IRREGULAR = "goto17_irregular_cnet_mcf"
 SEED_BASE = 42                  # the script's seeds are 42, 43, 44
 EXTRA_ARC_FACTOR = 4
 WARM_TOL = 1e-4
@@ -65,17 +72,11 @@ def mcf_kkt(mcf, x, y):
                      np.asarray(mcf.u, float), np.ones(mcf.m, bool), x, y)
 
 
-def _synced(fn, dev):
-    bench._sync(dev)
-    t0 = time.perf_counter()
-    out = fn()
-    bench._sync(dev)
-    return out, time.perf_counter() - t0
-
-
 def run_row(cell: str, B: int, width: int, height: int, seed: int,
             warm_iters: int, n_base: int, dev: torch.device) -> dict:
-    """One seed of the GOTO-17 protocol; returns its record."""
+    """One seed of the GOTO-17 protocol, on the irregular class for
+    ``IRREGULAR`` and the degree-regular one otherwise; returns its
+    record."""
     from smart_crossover_tpu_torch import native
     from smart_crossover_tpu_torch._build import (
         kernel_launch_counts,
@@ -90,9 +91,10 @@ def run_row(cell: str, B: int, width: int, height: int, seed: int,
     from smart_crossover_tpu_torch.solvers.pdhg_mcf import pdhg_mcf_device
     from smart_crossover_tpu_torch.solvers.solving import solve_mcf
 
+    regular = cell != IRREGULAR
     t0 = time.perf_counter()
     gen = goto_like_mcf(width, height, extra_arc_factor=EXTRA_ARC_FACTOR,
-                        seed=seed, regular=True)
+                        seed=seed, regular=regular)
     generate_s = time.perf_counter() - t0
     # the DIMACS round trip: every solver sees the instance read back
     with tempfile.TemporaryDirectory(prefix="goto17_min_") as tmp:
@@ -122,8 +124,8 @@ def run_row(cell: str, B: int, width: int, height: int, seed: int,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     reset_kernel_launch_counts()
-    (wx, wy, w_iters, w_conv, _), warm_s = _synced(warm, dev)
-    _, warm_steady_s = _synced(warm, dev)
+    (wx, wy, w_iters, w_conv, _), warm_s = bench.synced(warm, dev)
+    _, warm_steady_s = bench.synced(warm, dev)
     stats = {}
     t0 = time.perf_counter()
     out = network_crossover(x=np.asarray(wx, np.float64), mcf=mcf,
@@ -137,7 +139,7 @@ def run_row(cell: str, B: int, width: int, height: int, seed: int,
     dense = {k: launches[k] for k in DENSE_PDHG}
     row = {
         "cell": cell, "seed": seed, "width": width, "height": height,
-        "nodes": mcf.m, "arcs": mcf.n, "regular": True,
+        "nodes": mcf.m, "arcs": mcf.n, "regular": regular,
         "dimacs_roundtrip": True, "min_file_bytes": min_bytes,
         "generate_s": generate_s, "io_s": io_s,
         "native_build_s": native_build_s,
@@ -196,6 +198,7 @@ def records(row: dict) -> list:
 
 
 def result(row: dict, detail: dict) -> dict:
-    return {"metric": "seconds_to_exact_vertex_goto17",
+    irregular = "" if row["regular"] else "_irregular"
+    return {"metric": f"seconds_to_exact_vertex_goto17{irregular}",
             "value": row["seconds_to_exact_vertex"], "unit": "s",
             "vs_baseline": row["vs_cold"], "detail": {**detail, **row}}

@@ -37,6 +37,11 @@ from smart_crossover_tpu_torch.solvers.pdhg import _host
 #: telemetry from the most recent single-big-LP device endgame
 #: (solvers/ne_device.py stats dict), None when the exact path ran
 last_ne_stats: dict | None = None
+#: instances of the most recent ``ipm_fleet`` call that the batched
+#: endgame left unconverged and the host ``ipm_solve`` finished
+last_stragglers: int = 0
+#: iterations of the most recent endgame that formed A D A' on the host
+last_host_forms: int = 0
 
 
 def _thread_map(work, B, threads=None):
@@ -102,7 +107,10 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
     for the normal equations and one stacked factor-solve per step — so
     the endgame rides multithreaded BLAS3 instead of a per-instance
     Python loop.  Same math as solvers/ipm_batched.py::ipm_dense (which
-    mirrors solvers/ipm.py); infinite bounds get the same wide box.
+    mirrors solvers/ipm.py); a one-sided column's infinite bound gets the
+    same wide box, and a free column, unboxed, gets the scaling cap
+    d = 1e10 (the host IPM's ``d_free``), where the JAX package boxes it
+    too (ROADMAP 3.12).
 
     Returns (x, y, zl, zu, converged, iters_used).
     """
@@ -110,22 +118,38 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
     B, m, n = A.shape
     b = np.asarray(b, dtype=np.float64)
     c = np.asarray(c, dtype=np.float64)
+    l = np.asarray(l, dtype=np.float64)
+    u = np.asarray(u, dtype=np.float64)
+    # the JAX package's wide box on a one-sided column's infinite bound; a
+    # free column stays unboxed, its slacks and duals drop out (x = lv + p
+    # with lv = 0, q = -x) and its scaling sits at the cap.  Without free
+    # columns each where() below takes its first branch
+    free = ~np.isfinite(l) & ~np.isfinite(u)
+    bnd = ~free
     scale = 1.0 + np.maximum(np.abs(b).max(axis=1), 1.0)   # (B,)
     wide = (1e6 * scale)[:, None]
-    l = np.where(np.isfinite(l), l, -wide)
-    u = np.where(np.isfinite(u), u, wide)
-    l_full = l.copy()   # pre-compaction copy; recovers x = l + p at exit
+    l = np.where(np.isfinite(l) | free, l, -wide)
+    u = np.where(np.isfinite(u) | free, u, wide)
+    lv, uv = np.where(bnd, l, 0.0), np.where(bnd, u, 0.0)
+    n_bounds = 2 * bnd.sum(axis=1)                          # (B,)
+    has_free = free.any(axis=1)                             # (B,)
+    l_full = lv.copy()  # pre-compaction copy; recovers x = lv + p at exit
+
+    def per(v, s):
+        """v / s on the boxed columns, else 0."""
+        return np.where(bnd, v / np.where(bnd, s, 1.0), 0.0)
 
     floor = 1e-12
     # clamp the handoff INTO the box first: an f32 device iterate can sit
     # ~1e-7 outside a bound, and flooring p and q independently would then
     # bake in p + q > u - l — a bound violation no later step removes
     # (the ratio test keeps both slacks positive, not their sum fixed)
-    x0c = np.clip(np.asarray(x0, np.float64), l + floor, u - floor)
-    p = np.maximum(x0c - l, floor)
-    q = np.maximum(u - x0c, floor)
-    zl = np.maximum(np.asarray(zl0, np.float64), floor)
-    zu = np.maximum(np.asarray(zu0, np.float64), floor)
+    x0c = np.clip(np.asarray(x0, np.float64), np.where(bnd, l + floor, -np.inf),
+                  np.where(bnd, u - floor, np.inf))
+    p = np.where(bnd, np.maximum(x0c - lv, floor), x0c)
+    q = np.where(bnd, np.maximum(uv - x0c, floor), -x0c)
+    zl = np.where(bnd, np.maximum(np.asarray(zl0, np.float64), floor), 0.0)
+    zu = np.where(bnd, np.maximum(np.asarray(zu0, np.float64), floor), 0.0)
     y = np.asarray(y0, np.float64).copy()
 
     bnorm = 1.0 + np.linalg.norm(b, axis=1)                # (B,)
@@ -134,15 +158,15 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
     eye = np.eye(m)[None]
 
     def residuals():
-        x = l + p
+        x = lv + p
         pres = np.linalg.norm(b - (A @ x[..., None])[..., 0],
                               axis=1) / bnorm
         dres = np.linalg.norm(c - (AT @ y[..., None])[..., 0]
                               - zl + zu, axis=1) / cnorm
         pobj = np.einsum("bn,bn->b", c, x)
         dobj = (np.einsum("bm,bm->b", b, y)
-                + np.einsum("bn,bn->b", l, zl)
-                - np.einsum("bn,bn->b", u, zu))
+                + np.einsum("bn,bn->b", lv, zl)
+                - np.einsum("bn,bn->b", uv, zu))
         relgap = np.abs(pobj - dobj) / (1 + np.abs(pobj) + np.abs(dobj))
         return pres, dres, relgap
 
@@ -151,6 +175,11 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
         r = np.where(neg, -v / np.where(neg, dv, -1.0), np.inf)
         return np.minimum(1.0, r.min(axis=1))              # (B,)
 
+    def pq_step(dx):
+        """The primal ratio test over the boxed columns."""
+        return np.minimum(max_step(p, np.where(bnd, dx, 0.0)),
+                          max_step(q, np.where(bnd, -dx, 0.0)))
+
     conv = np.zeros(B, dtype=bool)
     iters_used = np.zeros(B, dtype=np.int64)
     # once the f32 preconditioner fails a solve, it stays dead: the KKT
@@ -158,6 +187,7 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
     # and each doomed retry costs a device factor + a stalled CG before
     # the exact path runs anyway
     ne_dead = False
+    host_forms = 0      # iterations that formed A D A' on the host
     # final-state stores; active-set compaction below slices the working
     # arrays down as instances converge, so finished state is scattered
     # back here by global index
@@ -177,19 +207,21 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
             # compact: drop converged instances from every working array
             idx = idx[act]
             p, q, zl, zu, y = p[act], q[act], zl[act], zu[act], y[act]
-            A, AT, b, c, l, u = (A[act], AT[act], b[act], c[act],
-                                 l[act], u[act])
+            A, AT, b, c, lv, uv = (A[act], AT[act], b[act], c[act],
+                                   lv[act], uv[act])
+            bnd = bnd[act]
+            n_bounds, has_free = n_bounds[act], has_free[act]
             bnorm, cnorm = bnorm[act], cnorm[act]
 
-        x = l + p
+        x = lv + p
         r_p = b - (A @ x[..., None])[..., 0]
         r_d = c - (AT @ y[..., None])[..., 0] - zl + zu
         gap = np.einsum("bn,bn->b", p, zl) + np.einsum("bn,bn->b", q, zu)
-        mu = gap / (2 * n)
+        mu = gap / n_bounds
 
         # clip the scaling like the host path (ipm.py d_cap): a handful of
         # degenerate columns must not make the whole batch singular
-        d = 1.0 / np.maximum(zl / p + zu / q, 1e-10)       # (B, n)
+        d = 1.0 / np.maximum(per(zl, p) + per(zu, q), 1e-10)
         d = np.minimum(d, 1e10)
         # ne_state carries the (lazily formed) exact host factorisation —
         # when the device-f32 path below handles every solve of this
@@ -197,8 +229,10 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
         ne_state: dict = {}
 
         def ensure_exact():
+            nonlocal host_forms
             if "inv" in ne_state or "cho" in ne_state:
                 return
+            host_forms += 1
             ADA = _bmm(A * d[:, None, :], AT)
             # PER-INSTANCE regularisation, RELATIVE to the diagonal
             # scale: with d capped at 1e10 the diagonal reaches ~1e12+,
@@ -208,14 +242,22 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
             # iterations (the round-3 Amdahl hole: every straggler pays
             # a full host IPM re-solve).  A 1e-14-relative shift is
             # below the factorisation's own backward error and keeps
-            # refinement contracting.
+            # refinement contracting.  With free columns (at the cap
+            # from the first iteration) a shift relative to the largest
+            # diagonal swamps the rows of small diagonal and the primal
+            # residual stops contracting near 1e-8: those instances shift
+            # each row relative to its own diagonal (the host IPM's
+            # relative shifts, ROADMAP 3.12).  reg is (B, m), one shift
+            # per row.
             if "reg" in ne_state:   # fixed by the device path already
                 reg = ne_state["reg"]
             else:
                 diag_max = np.einsum("bii->b", np.abs(ADA)) / m \
                     + np.abs(ADA).max(axis=(1, 2))
-                reg = 1e-14 * (1.0 + diag_max)
-            ADA = ADA + reg[:, None, None] * eye
+                reg = np.where(has_free[:, None],
+                               1e-14 * (1.0 + np.einsum("bii->bi", ADA)),
+                               1e-14 * (1.0 + diag_max)[:, None])
+            ADA = ADA + reg[:, :, None] * eye
             # ONE batched inverse per iteration, shared by the
             # predictor, corrector, and Gondzio solves (np.linalg.solve
             # would refactor for each, and per-instance scipy cho_factor
@@ -262,8 +304,11 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
         if use_dev:
             # for SPD M the largest element sits on the diagonal, so the
             # diag-based reg equals the exact path's trace/max formula
-            reg1 = 1e-14 * (1.0 + diag_ne.mean() + diag_ne.max())
-            ne_state["reg"] = np.array([reg1])
+            if has_free[0]:
+                reg1 = 1e-14 * (1.0 + diag_ne)
+            else:
+                reg1 = 1e-14 * (1.0 + diag_ne.mean() + diag_ne.max())
+            ne_state["reg"] = np.broadcast_to(reg1, (1, m))
             A0, AT0, d0 = A[0], AT[0], d[0]
             # inexact-Newton forcing term: a Newton direction only needs
             # accuracy proportional to the residual it is about to
@@ -279,13 +324,24 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
             def ne_matvec(v):
                 return A0 @ (d0 * (AT0 @ v)) + reg1 * v
 
-            def batch_solve(rhs):
+            def batch_solve(rhs, corrector=False):
                 nonlocal ne_dead
                 if ("cho" not in ne_state and "inv" not in ne_state
                         and not ne_dead):
                     dy_, ok = ne_device.solve(rhs[0], ne_matvec,
                                               rel_tol=eta, reg=reg1)
                     if ok:
+                        return dy_[None]
+                    if (corrector and ne_device.f64
+                            and np.isfinite(ne_device.stats["fails"][-1][
+                                "best_res"])):
+                        # a centrality corrector whose f64 device solve
+                        # missed its tolerance keeps its direction: it is
+                        # taken only where both step lengths grow, and
+                        # the exact path would form A D A' on the host for
+                        # it (16-18 s at 10,000 x 36,975 on the card
+                        # machine, once in every iteration there; the JAX
+                        # module falls back, ROADMAP 3.13)
                         return dy_[None]
                     if not ne_device.f64:
                         # f32-preconditioner stalls are monotone in mu:
@@ -295,10 +351,11 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
                         ne_dead = True
                 return exact_solve(rhs)
         else:
-            batch_solve = exact_solve
+            def batch_solve(rhs, corrector=False):
+                return exact_solve(rhs)
 
         def newton(rp, rd, rcl, rcu):
-            rhs_x = rd - rcl / p + rcu / q
+            rhs_x = rd - per(rcl, p) + per(rcu, q)
             rhs_y = rp + (A @ (d * rhs_x)[..., None])[..., 0]
             return rhs_x, rhs_y
 
@@ -307,10 +364,10 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
         rhs_x_a, rhs_y_a = newton(r_p, r_d, rcl_a, rcu_a)
         dy_a = batch_solve(rhs_y_a)
         dx_a = d * ((AT @ dy_a[..., None])[..., 0] - rhs_x_a)
-        dzl_a = (rcl_a - zl * dx_a) / p
-        dzu_a = (rcu_a + zu * dx_a) / q
+        dzl_a = per(rcl_a - zl * dx_a, p)
+        dzu_a = per(rcu_a + zu * dx_a, q)
 
-        ap = np.minimum(max_step(p, dx_a), max_step(q, -dx_a))
+        ap = pq_step(dx_a)
         ad = np.minimum(max_step(zl, dzl_a), max_step(zu, dzu_a))
         gap_aff = (np.einsum("bn,bn->b", p + ap[:, None] * dx_a,
                              zl + ad[:, None] * dzl_a)
@@ -323,10 +380,10 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
         rhs_x_c, rhs_y_c = newton(r_p, r_d, rcl, rcu)
         dy = batch_solve(rhs_y_c)
         dx = d * ((AT @ dy[..., None])[..., 0] - rhs_x_c)
-        dzl = (rcl - zl * dx) / p
-        dzu = (rcu + zu * dx) / q
+        dzl = per(rcl - zl * dx, p)
+        dzu = per(rcu + zu * dx, q)
 
-        ap = 0.9995 * np.minimum(max_step(p, dx), max_step(q, -dx))
+        ap = 0.9995 * pq_step(dx)
         ad = 0.9995 * np.minimum(max_step(zl, dzl), max_step(zu, dzu))
 
         # Gondzio multiple centrality correctors (batched): extra
@@ -345,22 +402,22 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
             zl_t = zl + td * dzl
             zu_t = zu + td * dzu
             mu_t = ((np.einsum("bn,bn->b", p_t, zl_t)
-                     + np.einsum("bn,bn->b", q_t, zu_t)) / (2 * n))[:, None]
+                     + np.einsum("bn,bn->b", q_t, zu_t)) / n_bounds)[:, None]
             vl = p_t * zl_t
             vu = q_t * zu_t
-            ccl = np.clip(vl, 0.1 * mu_t, 10.0 * mu_t) - vl
-            ccu = np.clip(vu, 0.1 * mu_t, 10.0 * mu_t) - vu
-            rhs_x_cc = -ccl / p + ccu / q
+            ccl = np.where(bnd, np.clip(vl, 0.1 * mu_t, 10.0 * mu_t) - vl, 0.0)
+            ccu = np.where(bnd, np.clip(vu, 0.1 * mu_t, 10.0 * mu_t) - vu, 0.0)
+            rhs_x_cc = -per(ccl, p) + per(ccu, q)
             rhs_y_cc = (A @ (d * rhs_x_cc)[..., None])[..., 0]
-            cdy = batch_solve(rhs_y_cc)
+            cdy = batch_solve(rhs_y_cc, corrector=True)
             cdx = d * ((AT @ cdy[..., None])[..., 0] - rhs_x_cc)
-            cdzl = (ccl - zl * cdx) / p
-            cdzu = (ccu + zu * cdx) / q
+            cdzl = per(ccl - zl * cdx, p)
+            cdzu = per(ccu + zu * cdx, q)
             dx2 = dx + cdx
             dy2 = dy + cdy
             dzl2 = dzl + cdzl
             dzu2 = dzu + cdzu
-            ap2 = 0.9995 * np.minimum(max_step(p, dx2), max_step(q, -dx2))
+            ap2 = 0.9995 * pq_step(dx2)
             ad2 = 0.9995 * np.minimum(max_step(zl, dzl2),
                                       max_step(zu, dzu2))
             ok = (need & (ap2 >= ap) & (ad2 >= ad))[:, None]
@@ -373,17 +430,19 @@ def ipm_endgame_batched(A, b, c, l, u, x0, y0, zl0, zu0,
 
         ap = ap[:, None]
         ad = ad[:, None]
-        p = np.maximum(p + ap * dx, 1e-300)
-        q = np.maximum(q - ap * dx, 1e-300)
+        p = np.where(bnd, np.maximum(p + ap * dx, 1e-300), p + ap * dx)
+        q = np.where(bnd, np.maximum(q - ap * dx, 1e-300), q - ap * dx)
         y = y + ad * dy
-        zl = np.maximum(zl + ad * dzl, 1e-300)
-        zu = np.maximum(zu + ad * dzu, 1e-300)
+        zl = np.where(bnd, np.maximum(zl + ad * dzl, 1e-300), 0.0)
+        zu = np.where(bnd, np.maximum(zu + ad * dzu, 1e-300), 0.0)
     else:
         pres, dres, relgap = residuals()
         for arr_g, arr in ((P, p), (Q, q), (ZL, zl), (ZU, zu), (Y, y)):
             arr_g[idx] = arr
         conv[idx] = (pres < tol) & (dres < tol) & (relgap < tol)
 
+    global last_host_forms
+    last_host_forms = host_forms
     return l_full + P, Y, ZL, ZU, conv, iters_used
 
 
@@ -537,7 +596,7 @@ def ipm_fleet(A, b, c, l, u, tol: float = 1e-8,
     x_r, y_r, zl_r, zu_r, conv, refine_iters = ipm_endgame_batched(
         A, b, c, l, u, x_dev, y_dev, zl_dev, zu_dev, tol=tol,
         max_iters=max_refine_iters, ne_device=ne_dev)
-    global last_ne_stats            # bench/test telemetry
+    global last_ne_stats, last_stragglers    # bench/test telemetry
     last_ne_stats = dict(ne_dev.stats) if ne_dev is not None else None
     x_out = x_r
     y_out = y_r
@@ -547,6 +606,7 @@ def ipm_fleet(A, b, c, l, u, tol: float = 1e-8,
     # stragglers (rare: ill-conditioned instances the batched endgame
     # couldn't finish) go through the full regularised host IPM
     stragglers = np.flatnonzero(~conv)
+    last_stragglers = int(stragglers.size)
 
     def one(i: int) -> None:
         res: IPMResult = ipm_solve(A[i], b[i], c[i], l[i], u[i], tol=tol,

@@ -143,14 +143,15 @@ class DeviceNE:
         return out
 
     def _solve_direct64(self, rhs: np.ndarray, matvec, rel_tol: float,
-                        reg: float) -> tuple[np.ndarray, bool]:
+                        reg) -> tuple[np.ndarray, bool]:
         """Direct f64 device factor+solve (+1 exact-IR pass).
 
-        Factors the resident f64 M with the caller's exact ``reg``; on
-        Cholesky breakdown the shift escalates 30x (relative to the
-        diagonal scale) and the post-IR residual check decides whether the
-        escalated factor still solved the exact system.  A torch error in
-        the factor or the solves is a failed solve."""
+        Factors the resident f64 M with the caller's exact ``reg`` (a
+        scalar, or one shift per row); on Cholesky breakdown the shift
+        escalates 30x (relative to the diagonal scale) and the post-IR
+        residual check decides whether the escalated factor still solved
+        the exact system.  A torch error in the factor or the solves is a
+        failed solve."""
         rhs = np.asarray(rhs, dtype=np.float64)
         rhs_norm = np.linalg.norm(rhs)
         if rhs_norm == 0.0:
@@ -163,17 +164,19 @@ class DeviceNE:
         try:
             if self._L64 is None:
                 t0 = time.perf_counter()
-                shift, ok = float(reg), False
-                eye = torch.eye(self.m, dtype=torch.float64,
-                                device=self.device)
+                shift = torch.as_tensor(
+                    np.broadcast_to(np.asarray(reg, np.float64),
+                                    (self.m,)).copy(), device=self.device)
+                ok = False
                 for _ in range(5):
                     L, info = torch.linalg.cholesky_ex(
-                        self._M64 + shift * eye)
+                        self._M64 + torch.diag(shift))
                     ok = bool((info == 0) & torch.isfinite(
                         torch.diagonal(L)).all())
                     if ok:
                         break
-                    shift = max(shift * 30.0, 1e-14 * self._diag_scale)
+                    shift = torch.clamp(shift * 30.0,
+                                        min=1e-14 * self._diag_scale)
                 self.stats["factor_s"] += time.perf_counter() - t0
                 if not ok:
                     self._fail(np.inf, rel_tol, f64_factor_breakdown=True)
@@ -205,12 +208,12 @@ class DeviceNE:
 
     def solve(self, rhs: np.ndarray, matvec, rel_tol: float = 1e-11,
               max_iters: int = 30,
-              reg: float | None = None) -> tuple[np.ndarray, bool]:
+              reg=None) -> tuple[np.ndarray, bool]:
         """Solve the exact f64 system M dy = rhs: preconditioned CG through
         the resident f32 factor, or, on the f64 route (``self.f64``), a
         direct f64 device factor+solve (``reg`` supplies the exact shift the
-        caller folded into ``matvec``; without it the factor runs
-        unshifted and the residual check decides).
+        caller folded into ``matvec``, a scalar or one per row; without it
+        the factor runs unshifted and the residual check decides).
 
         ``matvec(v)`` must be the EXACT f64 operator.  Returns
         ``(dy, converged)``; on stagnation the best iterate so far comes

@@ -114,12 +114,21 @@ def test_stage_split_runs_the_pipeline():
      [("goto17_cnet_mcf", 1, 42, 5000, 1)]),
     (["--cell", "goto17_cnet_mcf", "--seed", "2", "--device", "cpu"], {},
      [("goto17_cnet_mcf", 1, 44, 500, 1)]),
+    (["--cell", "goto17_irregular_cnet_mcf", "--seed", "1"], {},
+     [("goto17_irregular_cnet_mcf", 1, 43, 5000, 1)]),
+    (["--cell", "goto17_irregular_cnet_mcf", "--device", "cpu"], {},
+     [("goto17_irregular_cnet_mcf", 1, 42, 500, 1)]),
+    (["--cell", "ipm_stair_10000x36975"], {},
+     [("ipm_stair_10000x36975", 20, 0, 2, 1)]),
+    (["--cell", "ipm_stair_10000x36975", "--seed", "3", "--device", "cpu"],
+     {}, [("ipm_stair_10000x36975", 2, 3, 2, 1)]),
 ])
 def test_rows(argv, env, want, monkeypatch):
     """The rows a command line runs: the root bench.py's shapes, seeds,
     reps and baseline instances by default; the CPU's reduced row; a row
     that runs only when named (serving: dispatches for reps; GOTO-17: one
-    instance, seed 42 + N, 5000 warm iterations)."""
+    instance, seed 42 + N, 5000 warm iterations, on either class; the
+    staircase LP: periods, seed N, two solves, one baseline run)."""
     monkeypatch.delenv("SCX_BENCH_SKIP_784", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -127,8 +136,13 @@ def test_rows(argv, env, want, monkeypatch):
     bench.add_arguments(ap)
     rows = bench.rows_to_run(ap.parse_args(argv))
     assert [(r[0], r[1], r[4], r[5], r[6]) for r in rows] == want
-    if argv[:2] == ["--cell", "goto17_cnet_mcf"]:   # the torus's width
+    if argv[:2] in (["--cell", "goto17_cnet_mcf"],
+                    ["--cell", "goto17_irregular_cnet_mcf"]):
+        # the torus's width
         assert rows[0][2] == rows[0][3] == (16 if "cpu" in argv else 362)
+    if argv[:2] == ["--cell", "ipm_stair_10000x36975"]:
+        # rows and columns per period: 10,000 x 34,000 structural
+        assert rows[0][2:4] == ((20, 60) if "cpu" in argv else (500, 1700))
 
 
 def test_cpu_refuses_the_784_row():

@@ -411,6 +411,71 @@ def test_ipm_big_device_fault_takes_exact_path(rng, monkeypatch):
     assert got.obj_val == pytest.approx(ref.fun, abs=1e-7)
 
 
+
+def test_endgame_corrector_miss_keeps_device_direction():
+    """ROADMAP 3.13: on the f64 route, a centrality corrector whose device
+    solve misses its tolerance keeps its direction instead of forming
+    A D A' on the host.  As on a card: the float32 device stage (ipm_big's
+    arguments) on a staircase LP with free columns and infinite upper
+    bounds, then the f64 endgame with a DeviceNE on the CPU, whose every
+    solve after an iteration's predictor and corrector (the Gondzio
+    correctors) is made to miss with its direction off by 1% of its norm.
+    Each miss counts as a fallback, no iteration forms A D A' on the host,
+    and the endgame still converges with a host f64 certificate on the
+    true bounds within 1e-8 and HiGHS's objective to 1e-7."""
+    from smart_crossover_tpu_torch.bench_ipm_stair import (
+        certificate_ok,
+        highs,
+        lp_certificate,
+    )
+    from smart_crossover_tpu_torch.data.lp_gen import staircase_lp
+
+    noise = np.random.default_rng(1)
+    missed = []
+
+    class MissingNE(tne.DeviceNE):
+        def factor(self, *a, **k):
+            self.since_factor = 0
+            return super().factor(*a, **k)
+
+        def solve(self, rhs, matvec, rel_tol=1e-11, **k):
+            self.since_factor += 1
+            if self.since_factor <= 2:
+                return super().solve(rhs, matvec, rel_tol, **k)
+            dy, _ = super().solve(rhs, matvec, 0.0, **k)
+            missed.append(self.stats["fails"][-1]["best_res"])
+            e = noise.standard_normal(dy.shape)
+            return dy + 1e-2 * np.linalg.norm(dy) * e / np.linalg.norm(e), \
+                False
+
+    lp = staircase_lp(periods=4, rows_per_period=40, vars_per_period=120,
+                      seed=1)
+    A_sp = lp.get_standard_A()
+    A, b, c = A_sp.toarray(), lp.b, lp.get_standard_c()
+    l, u = lp.get_standard_bounds()
+    assert (~np.isfinite(l) & ~np.isfinite(u)).any() and np.isinf(u).any()
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v)[None], dtype=torch.float32)
+
+    out = tib.ipm_dense_batched(f32(A), f32(b), f32(c), f32(l), f32(u),
+                                tol=1e-5, max_iters=60, mu_exit=1e-4,
+                                device="cpu")
+    dev = {k: out[k].double().numpy() for k in ("x", "y", "zl", "zu")}
+    ne = MissingNE(A, device="cpu")
+    assert ne.f64
+    x, y, _, _, conv, _ = tfleet.ipm_endgame_batched(
+        A[None], b[None], c[None], l[None], u[None], dev["x"], dev["y"],
+        dev["zl"], dev["zu"], tol=1e-8, max_iters=30, ne_device=ne)
+    assert missed and np.isfinite(missed).all()
+    assert ne.stats["fallbacks"] == len(missed)
+    assert tfleet.last_host_forms == 0
+    assert bool(conv[0])
+    cert = lp_certificate(A_sp, b, c, l, u, x[0], y[0])
+    assert certificate_ok(cert), cert
+    ref = highs(A_sp, b, c, l, u)["obj"]
+    assert abs(c @ x[0] - ref) <= 1e-7 * (1 + abs(ref))
+
 # ---- NE offload
 
 def test_maybe_device_ne_none_when_off(rng, monkeypatch):
