@@ -25,11 +25,10 @@ fetch, then timed calls each ending in a device sync):
   skipped under ``SCX_BENCH_SKIP_784=1``.
 
 After its timed calls each row runs one staged pass (``stage_split``):
-the same stages called one by one, each synced and inside a
-``torch.profiler.record_function`` range named after it, for the
-per-stage milliseconds; on the card a second staged pass under
-``torch.profiler`` gives the device's busy time and idle share.  The
-end-to-end numbers come from the timed calls only.
+one more call of the route inside ``trace.recording()``, whose own spans
+(``utils/trace.py``) give the per-stage milliseconds; on the card a
+second staged pass under ``torch.profiler`` gives the device's busy time
+and idle share.  The end-to-end numbers come from the timed calls only.
 
 The baseline is the reference's crossover stage done the reference's way
 on the host (scipy MST, spsolve, a sequential push; reference tree_BI.py),
@@ -59,7 +58,6 @@ seed N + k) and ``ipm_stair_10000x36975`` (``bench_ipm_stair.py``,
 from __future__ import annotations
 
 import argparse
-import contextlib
 import importlib
 import json
 import os
@@ -190,62 +188,28 @@ def synced(fn, dev: torch.device):
 def stage_split(s, d, M, reg: float = REG,
                 sinkhorn_iters: int = SINKHORN_ITERS,
                 max_pivots: int = MAX_PIVOTS, *, device=None):
-    """One run of ``batched_tnet_exact_device``'s stages ('mega' engine)
-    called one by one, each synced and inside a ``record_function`` range
-    named after it (``STAGES``).  s, d, M as that function takes them.
-    Returns (ms per stage, push iterations (B,), pivots (B,))."""
-    from smart_crossover_tpu_torch.config import resolve_device, to_device
-    from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
-    from smart_crossover_tpu_torch.ops.ranking import ot_flow_indicators
-    from smart_crossover_tpu_torch.ops.sinkhorn_fused import (
-        sinkhorn_plan_fused,
+    """One call of ``batched_tnet_exact_device`` ('mega' engine) inside
+    ``trace.recording()``: each stage's milliseconds (``STAGES``) from the
+    route's own spans, device time between their CUDA events on a card,
+    host time on the CPU.  s, d, M as that function takes them.  Returns
+    (ms per stage, push iterations (B,), pivots (B,))."""
+    from smart_crossover_tpu_torch.parallel.batched import (
+        batched_tnet_exact_device,
     )
-    from smart_crossover_tpu_torch.ops.transport_simplex_mega import (
-        mega_setup,
-        rebuild_plan,
-        transport_simplex_mega_state,
-    )
-    from smart_crossover_tpu_torch.ops.tree import (
-        bipartite_tree_solve,
-        push_to_bfs,
-    )
-    from smart_crossover_tpu_torch.solvers.sinkhorn import round_to_feasible
+    from smart_crossover_tpu_torch.utils import trace
 
-    dev = resolve_device(device, M)
+    with trace.recording() as rec:
+        out = batched_tnet_exact_device(s, d, M, reg=reg,
+                                        sinkhorn_iters=sinkhorn_iters,
+                                        max_pivots=max_pivots,
+                                        engine="mega", device=device)
+    spans = rec.summary()
     ms = {}
-
-    @contextlib.contextmanager
-    def stage(name):
-        _sync(dev)
-        t0 = time.perf_counter()
-        with torch.profiler.record_function(name):
-            yield
-            _sync(dev)
-        ms[name] = (time.perf_counter() - t0) * 1e3
-
-    with stage("upload"):
-        M = to_device(M, dev)
-        s, d = to_device(s, dev, M.dtype), to_device(d, dev, M.dtype)
-    with stage("sinkhorn_kernel"):
-        Mn = (M / (reg * M.amax((1, 2)))[:, None, None]).contiguous()
-        plan, _, _ = sinkhorn_plan_fused(s, d, Mn, 1.0, sinkhorn_iters)
-    with stage("round_indicators"):
-        W = ot_flow_indicators(round_to_feasible(plan, s, d), s, d)
-    with stage("boruvka_flow"):
-        tree = boruvka_bipartite_mst(W)
-    with stage("tree_solve"):
-        X = bipartite_tree_solve(tree, s, d)
-    with stage("push"):
-        X0, push = push_to_bfs(X)
-    with stage("boruvka_support"):
-        Bm0 = boruvka_bipartite_mst((X0 > 1e-12).to(M.dtype))
-    with stage("simplex_setup"):
-        st = mega_setup(X0, Bm0, M)
-    with stage("simplex_kernel"):
-        out = transport_simplex_mega_state(st, max_pivots=max_pivots)
-    with stage("rebuild"):
-        rebuild_plan(out[0], out[1], *M.shape[1:])
-    return ms, push, out[5]
+    for name in STAGES:
+        sp = spans[trace.PREFIX + name]
+        sec = sp["event_s"] if sp["event_s"] is not None else sp["host_s"]
+        ms[name] = sec * 1e3
+    return ms, out[2], out[3]
 
 
 def layer_ms(stage_ms: dict, device_stage_ms: float, certify_ms: float):
@@ -271,6 +235,8 @@ def device_busy(fn, dev: torch.device) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from smart_crossover_tpu_torch.utils import trace
+
     _sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -278,11 +244,11 @@ def device_busy(fn, dev: torch.device) -> dict:
         fn()
         _sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device activity, less the stage ranges' own device-side copies
+    # device activity, less the trace spans' own device-side copies
     acts = [(e.name(), e.start_ns(), e.duration_ns())
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA
-            and e.name() not in STAGES]
+            and not e.name().startswith(trace.PREFIX)]
     busy_ns, end = 0, float("-inf")
     for lo, dur in sorted((lo, dur) for _, lo, dur in acts):
         if lo + dur > end:
@@ -396,21 +362,13 @@ def run_row(cell: str, B: int, S: int, D: int, seed: int, reps: int,
     if dev.type == "cuda":
         row["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(
             dev)
-        row["staged_pass_profile"] = staged_pass_profile(s, d, M, stage_ms,
-                                                         dev)
+        row["staged_pass_profile"] = staged_pass_profile(s, d, M, dev)
     return row
 
 
-def staged_pass_profile(s, d, M, stage_ms: dict, dev: torch.device) -> dict:
-    """A second staged pass under ``torch.profiler`` (``device_busy``);
-    ``stage_ms`` is the unprofiled pass's split."""
-    prof = device_busy(lambda: stage_split(s, d, M, device=dev), dev)
-    if "profiled_wall_ms" in prof:
-        # the profiler slows the host loops, not the device: the same
-        # busy time over the unprofiled staged pass's wall time
-        prof["device_idle_share_unprofiled"] = (
-            1.0 - prof["device_busy_ms"] / sum(stage_ms.values()))
-    return prof
+def staged_pass_profile(s, d, M, dev: torch.device) -> dict:
+    """A second staged pass under ``torch.profiler`` (``device_busy``)."""
+    return device_busy(lambda: stage_split(s, d, M, device=dev), dev)
 
 
 def card(dev: torch.device) -> dict:

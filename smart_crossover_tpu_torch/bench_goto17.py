@@ -173,11 +173,6 @@ def run_row(cell: str, B: int, width: int, height: int, seed: int,
         t0 = time.perf_counter()
         prof = bench.device_busy(warm, dev)
         prof["seconds"] = time.perf_counter() - t0
-        if "profiled_wall_ms" in prof:
-            # the profiler slows the host's launches: the same busy time
-            # over the unprofiled steady run's wall time
-            prof["device_idle_share_unprofiled"] = (
-                1.0 - prof["device_busy_ms"] / (warm_steady_s * 1e3))
         row["warm_steady_profile"] = prof
     return row
 

@@ -212,9 +212,6 @@ def run_row(cell: str, periods: int, rows: int, cols: int, seed: int,
             t0 = time.perf_counter()
             prof = bench.device_busy(solve, dev)
             prof["seconds"] = time.perf_counter() - t0
-            if "profiled_wall_ms" in prof:
-                prof["device_idle_share_unprofiled"] = (
-                    1.0 - prof["device_busy_ms"] / (runs[-1]["s"] * 1e3))
 
     launches = kernel_launch_counts()      # none: cuBLAS / cuSOLVER only
     t0 = time.perf_counter()

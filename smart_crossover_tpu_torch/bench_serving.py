@@ -144,8 +144,8 @@ def run_row(cell: str, B: int, S: int, D: int, seed: int, n_dispatch: int,
     if dev.type == "cuda":
         row["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(
             dev)
-        row["staged_pass_profile"] = bench.staged_pass_profile(
-            s, d, M, stage_ms, dev)
+        row["staged_pass_profile"] = bench.staged_pass_profile(s, d, M,
+                                                               dev)
     return row
 
 

@@ -16,7 +16,6 @@ the FULL problem holds.
 from __future__ import annotations
 
 import logging
-import time
 from typing import Optional
 
 import numpy as np
@@ -33,6 +32,7 @@ from smart_crossover_tpu_torch.solvers.network_simplex import (
     network_simplex_output,
 )
 from smart_crossover_tpu_torch.solvers.settings import SolverSettings
+from smart_crossover_tpu_torch.utils import trace
 from smart_crossover_tpu_torch.utils.timer import Timer
 
 logger = logging.getLogger(__name__)
@@ -63,6 +63,11 @@ def network_crossover(x: np.ndarray,
             column generation), ``cg_pivots``, ``cg_s`` and
             ``direct_solve`` (the fallback ran).
 
+    The call is the trace span ``scx.network_crossover`` around
+    ``scx.ranking``, then ``scx.tree_basis`` (TNET) or ``scx.cnet_setup``
+    (CNET: big-M, fixing, the first subproblem and basis), then ``scx.cg``
+    (``utils/trace.py``).
+
     Returns:
         Output with the vertex solution, combined runtime, and the total
         pivot count (simplex iterations + TNET push iterations).
@@ -70,11 +75,17 @@ def network_crossover(x: np.ndarray,
     if solver_settings is None:
         solver_settings = SolverSettings(log_console=0)
     logger.info("*** Running %s algorithm ***", method)
+    with trace.span("scx.network_crossover"):
+        return _network_crossover(x, ot, mcf, method, solver,
+                                  solver_settings, device,
+                                  {} if stats is None else stats)
 
+
+def _network_crossover(x, ot, mcf, method, solver, solver_settings, device,
+                       stats) -> Output:
     timer = Timer()
     timer.start()
     push_iter = 0
-    stats = {} if stats is None else stats
 
     x = np.asarray(x, dtype=np.float64).reshape(-1)
     if method in ("tnet", "cnet_ot"):
@@ -97,39 +108,37 @@ def network_crossover(x: np.ndarray,
         raise ValueError(
             "Invalid method. Choose from 'tnet', 'cnet_ot', 'cnet_mcf'.")
 
-    t0 = time.perf_counter()
-    queue, flow_indicators = manager.get_sorted_flows(x)
-    stats["ranking_s"] = time.perf_counter() - t0
+    with trace.span("scx.ranking", stats=stats, key="ranking_s"):
+        queue, flow_indicators = manager.get_sorted_flows(x)
 
     if method == "tnet":
         manager.get_mcf()
-        t0 = time.perf_counter()
-        tree_basis, push_iter = tree_basis_identify(manager, flow_indicators)
-        stats["tree_basis_s"] = time.perf_counter() - t0
+        with trace.span("scx.tree_basis", stats=stats, key="tree_basis_s"):
+            tree_basis, push_iter = tree_basis_identify(manager,
+                                                        flow_indicators)
         manager.set_basis(tree_basis)
         manager.add_free_variables(np.where(tree_basis.vbasis == 0)[0])
     else:
-        if method == "cnet_ot":
-            manager.extend_by_bigM(manager.m * float(np.max(ot.M)))
-            manager.get_mcf()
-        else:  # cnet_mcf
-            scale = float(np.max(np.abs(mcf.c))) or 1.0
-            manager.rescale_cost(scale)
-            manager.fix_variables(
-                ind_fix_to_up=np.where(x >= mcf.u / 2)[0],
-                ind_fix_to_low=np.where(x < mcf.u / 2)[0])
-            manager.extend_by_bigM(
-                manager.m * float(np.max(manager.mcf.c[:manager.n])))
-        manager.update_subproblem()
-        manager.set_initial_basis()
+        with trace.span("scx.cnet_setup"):
+            if method == "cnet_ot":
+                manager.extend_by_bigM(manager.m * float(np.max(ot.M)))
+                manager.get_mcf()
+            else:  # cnet_mcf
+                scale = float(np.max(np.abs(mcf.c))) or 1.0
+                manager.rescale_cost(scale)
+                manager.fix_variables(
+                    ind_fix_to_up=np.where(x >= mcf.u / 2)[0],
+                    ind_fix_to_low=np.where(x < mcf.u / 2)[0])
+                manager.extend_by_bigM(
+                    manager.m * float(np.max(manager.mcf.c[:manager.n])))
+            manager.update_subproblem()
+            manager.set_initial_basis()
 
-    stats["push_iters"] = push_iter
+    trace.count("push.iters", push_iter, stats, "push_iters")
     timer.stop()
-    t0 = time.perf_counter()
-    cg_output = column_generation(manager, queue, solver, solver_settings,
-                                  stats=stats)
-    stats["cg_s"] = time.perf_counter() - t0
-    stats["cg_pivots"] = cg_output.iter_count or 0
+    with trace.span("scx.cg", stats=stats, key="cg_s"):
+        cg_output = column_generation(manager, queue, solver,
+                                      solver_settings, stats=stats)
     stats["direct_solve"] = cg_output.status == "CG_FAILED"
 
     if cg_output.status == "CG_FAILED":
@@ -168,8 +177,10 @@ def column_generation(net_manager: NetworkManager,
     Frees the next slice of the sorted flow queue, re-solves the subproblem
     warm-started from the recovered basis, and doubles the target size until
     the full-problem optimality condition holds.  ``stats``, if given, gets
-    the number of rounds as ``cg_rounds`` and the subproblem solves'
-    seconds as ``subproblem_s``.
+    the number of rounds as ``cg_rounds``, the subproblem solves' pivots
+    as ``cg_pivots`` and their seconds as ``subproblem_s``.  Each round's
+    solve and its optimality test (the pricing over every arc) are the
+    trace spans ``scx.cg.subproblem`` and ``scx.cg.pricing``.
     """
     if solver_settings is None:
         solver_settings = SolverSettings(log_console=0)
@@ -197,7 +208,8 @@ def column_generation(net_manager: NetworkManager,
         net_manager.update_subproblem()
 
         timer.stop()
-        sub_output = net_manager.solve_subproblem(solver, solver_settings)
+        with trace.span("scx.cg.subproblem"):
+            sub_output = net_manager.solve_subproblem(solver, solver_settings)
         obj_val = net_manager.recover_obj_val(sub_output.obj_val)
         timer.accumulate(sub_output.runtime)
         timer.start()
@@ -212,7 +224,9 @@ def column_generation(net_manager: NetworkManager,
         logger.info("*** CG round %d: %d columns, %s pivots ***",
                     cg_round, right, sub_output.iter_count)
 
-        if net_manager.check_optimality_condition(x, sub_output.y):
+        with trace.span("scx.cg.pricing"):
+            optimal = net_manager.check_optimality_condition(x, sub_output.y)
+        if optimal:
             break
 
         num_vars = int(COLUMN_GENERATION_RATIO * num_vars)
@@ -220,7 +234,8 @@ def column_generation(net_manager: NetworkManager,
 
     timer.stop()
     if stats is not None:
-        stats["cg_rounds"] = cg_round
         stats["subproblem_s"] = sub_s
+    trace.count("cg.rounds", cg_round, stats, "cg_rounds")
+    trace.count("cg.pivots", iters, stats, "cg_pivots")
     return Output(x=x, obj_val=obj_val, runtime=timer.total,
                   iter_count=iters, basis=net_manager.basis, status=status)

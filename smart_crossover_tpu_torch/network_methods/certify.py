@@ -21,6 +21,7 @@ from smart_crossover_tpu_torch.parameters import (
     TOLERANCE_FOR_ARTIFICIAL_VARS,
     TOLERANCE_FOR_REDUCED_COSTS,
 )
+from smart_crossover_tpu_torch.utils import trace
 
 
 @dataclass
@@ -118,10 +119,15 @@ def certify_ot_basis_batch(Bm, s, d, M, feas_tol: float | None = None,
     B = np.shape(M)[0]
     if threads is None:
         threads = 1
-    if threads > 1 and B > 1:
-        with cf.ThreadPoolExecutor(max_workers=threads) as pool:
-            return list(pool.map(
-                lambda i: certify_ot_basis(Bm[i], s[i], d[i], M[i], **kw),
-                range(B)))
-    return [certify_ot_basis(Bm[i], s[i], d[i], M[i], **kw)
-            for i in range(B)]
+    with trace.span("scx.certify"):
+        if threads > 1 and B > 1:
+            with cf.ThreadPoolExecutor(max_workers=threads) as pool:
+                certs = list(pool.map(
+                    lambda i: certify_ot_basis(Bm[i], s[i], d[i], M[i],
+                                               **kw),
+                    range(B)))
+        else:
+            certs = [certify_ot_basis(Bm[i], s[i], d[i], M[i], **kw)
+                     for i in range(B)]
+        trace.count("certify.rejected", sum(not c.ok for c in certs))
+    return certs

@@ -14,6 +14,7 @@ from smart_crossover_tpu_torch.config import to_device
 from smart_crossover_tpu_torch.models import Basis
 from smart_crossover_tpu_torch.ops.mst import boruvka_bipartite_mst
 from smart_crossover_tpu_torch.ops.tree import bipartite_tree_solve, push_to_bfs
+from smart_crossover_tpu_torch.utils import trace
 
 # a tree flow above this is basic (the JAX package's 10 * 1e-9)
 BASIC_FLOW = 1e-8
@@ -49,6 +50,9 @@ def identify_tree_flows(W, s, d):
     """Max-weight spanning tree of W (B, S, D), its tree flows for
     supplies s (B, S) and demands d (B, D), pushed to feasibility.
     Returns (X, push_iters (B,))."""
-    mask = boruvka_bipartite_mst(W)
-    X = bipartite_tree_solve(mask, s, d)
-    return push_to_bfs(X)
+    with trace.span("scx.boruvka_flow", W.device):
+        mask = boruvka_bipartite_mst(W)
+    with trace.span("scx.tree_solve", W.device):
+        X = bipartite_tree_solve(mask, s, d)
+    with trace.span("scx.push", W.device):
+        return push_to_bfs(X)

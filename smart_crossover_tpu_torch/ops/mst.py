@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from smart_crossover_tpu_torch.utils import trace
+
 NO_EDGE = torch.iinfo(torch.int64).max
 
 
@@ -24,6 +26,8 @@ def boruvka_bipartite_mst(W):
 
     Returns:
         (B, S, D) boolean masks, each with exactly S + D - 1 True entries.
+        The rounds run are counted as ``boruvka.rounds`` in the open trace
+        span.
     """
     B, S, D = W.shape
     V = S + D
@@ -37,7 +41,7 @@ def boruvka_bipartite_mst(W):
 
     comp = c_ids.clone()
     tree = torch.zeros(B, S * D + 1, dtype=torch.bool, device=dev)
-    for _ in range(max_rounds):
+    for rounds in range(1, max_rounds + 1):
         cross = comp[:, :S, None] != comp[:, None, S:]
         Wm = torch.where(cross, W, neg_inf)
         # first maximum = smallest flat edge id along each axis
@@ -76,4 +80,5 @@ def boruvka_bipartite_mst(W):
                 break
             parent = p2
         comp = parent.gather(1, comp)
+    trace.count("boruvka.rounds", rounds)
     return tree[:, :S * D].reshape(B, S, D)

@@ -47,6 +47,7 @@ from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
     _price,
     build_parent_from_mask,
 )
+from smart_crossover_tpu_torch.utils import trace
 
 _STATIC_SMEM = 1024      # the kernel's static shared memory, at most
 _MAX_CLUSTER = 8         # the portable thread-block cluster size
@@ -438,11 +439,14 @@ def batched_transport_simplex_mega(X, Bm, M, s=None, d=None,
     the pivot loop runs in float32.
     """
     B, S, D = M.shape
-    state = mega_setup(X, Bm, M)
-    parent, Xv, _, _, mask, pivots, optimal = transport_simplex_mega_state(
-        state, tol, max_pivots, refresh)
-    X_out = rebuild_plan(parent, Xv, S, D)
-    return X_out.clamp(min=0.0), mask, pivots, optimal
+    with trace.span("scx.simplex_setup", M.device):
+        state = mega_setup(X, Bm, M)
+    with trace.span("scx.simplex_kernel", M.device):
+        parent, Xv, _, _, mask, pivots, optimal = \
+            transport_simplex_mega_state(state, tol, max_pivots, refresh)
+    with trace.span("scx.rebuild", M.device):
+        X_out = rebuild_plan(parent, Xv, S, D).clamp(min=0.0)
+    return X_out, mask, pivots, optimal
 
 
 def transport_simplex_mega(X, Bm, M, s=None, d=None, tol: float = 1e-7,

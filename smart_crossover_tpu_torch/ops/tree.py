@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from smart_crossover_tpu_torch.utils import trace
+
 # push steps run between two host checks of "any instance still active";
 # a finished instance's later steps are no-ops (theta = 0)
 _PUSH_CHECK_EVERY = 16
@@ -58,7 +60,9 @@ def push_to_bfs(X, tol: float = 0.0, max_iter: int = 100_000):
     Per instance, while min(X) < -tol: take the most negative cell
     (I1, J1) (first in flat order), J2 = argmax of row I1, I2 = argmax of
     column J1, and shift theta = min(-X[I1,J1], X[I1,J2], X[I2,J1]) around
-    the 4-cycle.  Returns (X, push_iters (B,)).
+    the 4-cycle.  Returns (X, push_iters (B,)).  The steps the host
+    drove (whole check intervals, up to ``max_iter``) are counted as
+    ``push.steps`` in the open trace span.
     """
     X = X.clone()
     B, S, D = X.shape
@@ -86,4 +90,5 @@ def push_to_bfs(X, tol: float = 0.0, max_iter: int = 100_000):
         if not bool(((X.reshape(B, -1).amin(1) < -tol)
                      & (iters < max_iter)).any()):
             break
+    trace.count("push.steps", steps)
     return X, iters

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import os
-import time
 
 import numpy as np
 import torch
@@ -59,6 +58,7 @@ from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
 from smart_crossover_tpu_torch.parallel.mesh import BATCH_AXIS
 from smart_crossover_tpu_torch.solvers.network_simplex import network_simplex
 from smart_crossover_tpu_torch.solvers.sinkhorn import round_to_feasible
+from smart_crossover_tpu_torch.utils import trace
 
 # the device pivot engines: (X0, Bm0, M, max_pivots=) -> (X, Bm, pivots,
 # optimal); 'device' names the JAX package's default, 'parent'
@@ -79,26 +79,29 @@ def _engine(engine: str) -> str:
 
 def _on_device(s, d, M, device):
     dev = resolve_device(device, M)
-    M = to_device(M, dev)
-    return to_device(s, dev, M.dtype), to_device(d, dev, M.dtype), M
+    with trace.span("scx.upload", dev):
+        M = to_device(M, dev)
+        return to_device(s, dev, M.dtype), to_device(d, dev, M.dtype), M
 
 
 def _warm_start(s, d, M, reg: float, sinkhorn_iters: int,
                 tree_weights: str = "flow", use_pallas: bool | None = None):
-    eps = reg * M.amax((1, 2))
-    Mn = (M / eps[:, None, None]).contiguous()
-    sink = sinkhorn_plan_fused if use_kernel(use_pallas, M.device) \
-        else sinkhorn_plan_fused_plain
-    plan, f, g = sink(s, d, Mn, 1.0, sinkhorn_iters)
-    if tree_weights == "reduced_cost":
-        # the JAX package's -(M - f - g) over eps: a positive per-instance
-        # scaling, which leaves Borůvka's tree unchanged
-        W = -(Mn - f[:, :, None] - g[:, None, :])
-    elif tree_weights == "flow":
-        W = ot_flow_indicators(round_to_feasible(plan, s, d), s, d)
-    else:
+    if tree_weights not in ("flow", "reduced_cost"):
         raise ValueError(f"tree_weights must be 'flow' or 'reduced_cost', "
                          f"got {tree_weights!r}")
+    with trace.span("scx.sinkhorn_kernel", M.device):
+        eps = reg * M.amax((1, 2))
+        Mn = (M / eps[:, None, None]).contiguous()
+        sink = sinkhorn_plan_fused if use_kernel(use_pallas, M.device) \
+            else sinkhorn_plan_fused_plain
+        plan, f, g = sink(s, d, Mn, 1.0, sinkhorn_iters)
+    with trace.span("scx.round_indicators", M.device):
+        if tree_weights == "reduced_cost":
+            # the JAX package's -(M - f - g) over eps: a positive
+            # per-instance scaling, which leaves Borůvka's tree unchanged
+            W = -(Mn - f[:, :, None] - g[:, None, :])
+        else:
+            W = ot_flow_indicators(round_to_feasible(plan, s, d), s, d)
     return identify_tree_flows(W, s, d)
 
 
@@ -159,12 +162,14 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
     f64 vertex from basis_mask.
     """
     pivot = ENGINES[_engine(engine)]
-    s, d, M = _on_device(s, d, M, device)
-    X0, push = _warm_start(s, d, M, reg, sinkhorn_iters)
-    support = (X0 > 1e-12).to(M.dtype)
-    Bm0 = boruvka_bipartite_mst(support)
-    X, Bm, pivots, optimal = pivot(X0, Bm0, M, max_pivots=max_pivots)
-    obj = (X.to(M.dtype) * M).sum((1, 2))
+    dev = resolve_device(device, M)
+    with trace.span("scx.route", dev):
+        s, d, M = _on_device(s, d, M, dev)
+        X0, push = _warm_start(s, d, M, reg, sinkhorn_iters)
+        with trace.span("scx.boruvka_support", dev):
+            Bm0 = boruvka_bipartite_mst((X0 > 1e-12).to(M.dtype))
+        X, Bm, pivots, optimal = pivot(X0, Bm0, M, max_pivots=max_pivots)
+        obj = (X.to(M.dtype) * M).sum((1, 2))
     return X, obj, push, pivots, optimal, Bm
 
 
@@ -271,43 +276,40 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
         if max_pivots is None:
             # pivot counts from warm starts grow ~linearly in V
             max_pivots = max(5000, 8 * (S + D))
-        t0 = time.perf_counter()
-        *_, piv, opt, Bm = batched_tnet_exact_device(
-            s, d, M, reg=reg, sinkhorn_iters=sinkhorn_iters,
-            max_pivots=max_pivots, engine=engine, device=device)
-        piv_n = piv.cpu().numpy().astype(np.int64)
-        opt_n = opt.cpu().numpy().astype(bool)
-        Bm_n = Bm.cpu().numpy()
-        stats["device_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        certs = certify_ot_basis_batch(Bm_n, s64, d64, M64)
-        Xn = np.stack([c.x for c in certs])
-        obj_n = np.array([c.obj_val for c in certs])
-        ok = opt_n & np.array([c.ok for c in certs])
-        # certification failures / pivot-capped instances: warm-start the
-        # native core from the device basis
-        bad = np.flatnonzero(~ok)
-        for i in bad:
-            vbasis = np.where(Bm_n[i].ravel(), 0, -1).astype(np.int32)
-            res = _solve_ot(s64[i], d64[i], M64[i], vbasis)
-            Xn[i] = res.x.reshape(S, D)
-            obj_n[i] = res.obj_val
-            piv_n[i] += res.iter_count
-            ok[i] = res.status == "OPTIMAL"
-        stats["host_s"] = time.perf_counter() - t0
-        stats["repaired"] = int(bad.size)
+        with trace.span("scx.exact.device", stats=stats, key="device_s"):
+            *_, piv, opt, Bm = batched_tnet_exact_device(
+                s, d, M, reg=reg, sinkhorn_iters=sinkhorn_iters,
+                max_pivots=max_pivots, engine=engine, device=device)
+            piv_n = piv.cpu().numpy().astype(np.int64)
+            opt_n = opt.cpu().numpy().astype(bool)
+            Bm_n = Bm.cpu().numpy()
+        with trace.span("scx.exact.host", stats=stats, key="host_s"):
+            certs = certify_ot_basis_batch(Bm_n, s64, d64, M64)
+            Xn = np.stack([c.x for c in certs])
+            obj_n = np.array([c.obj_val for c in certs])
+            ok = opt_n & np.array([c.ok for c in certs])
+            # certification failures / pivot-capped instances: warm-start
+            # the native core from the device basis
+            bad = np.flatnonzero(~ok)
+            for i in bad:
+                vbasis = np.where(Bm_n[i].ravel(), 0, -1).astype(np.int32)
+                res = _solve_ot(s64[i], d64[i], M64[i], vbasis)
+                Xn[i] = res.x.reshape(S, D)
+                obj_n[i] = res.obj_val
+                piv_n[i] += res.iter_count
+                ok[i] = res.status == "OPTIMAL"
+            trace.count("exact.repaired", int(bad.size), stats, "repaired")
         return Xn, obj_n, piv_n, ok
 
-    t0 = time.perf_counter()
-    if mesh is not None:
-        X, _, _ = sharded_batched_tnet(mesh, s, d, M, reg=reg,
-                                       sinkhorn_iters=sinkhorn_iters)
-    else:
-        X, _, _ = batched_tnet(s, d, M, reg=reg,
-                               sinkhorn_iters=sinkhorn_iters, device=device)
-    X = X.to("cpu", torch.float64).numpy()
-    stats["device_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    with trace.span("scx.exact.device", stats=stats, key="device_s"):
+        if mesh is not None:
+            X, _, _ = sharded_batched_tnet(mesh, s, d, M, reg=reg,
+                                           sinkhorn_iters=sinkhorn_iters)
+        else:
+            X, _, _ = batched_tnet(s, d, M, reg=reg,
+                                   sinkhorn_iters=sinkhorn_iters,
+                                   device=device)
+        X = X.to("cpu", torch.float64).numpy()
     out_X = np.empty_like(X)
     out_obj = np.empty(B)
     pivots = np.empty(B, dtype=np.int64)
@@ -322,11 +324,11 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
         optimal[i] = res.status == "OPTIMAL"
 
     workers = min(max(os.cpu_count() or 1, 1), 8)
-    if workers > 1 and B > 1:
-        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
-            list(pool.map(cleanup, range(B)))
-    else:
-        for i in range(B):
-            cleanup(i)
-    stats["host_s"] = time.perf_counter() - t0
+    with trace.span("scx.exact.host", stats=stats, key="host_s"):
+        if workers > 1 and B > 1:
+            with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+                list(pool.map(cleanup, range(B)))
+        else:
+            for i in range(B):
+                cleanup(i)
     return out_X, out_obj, pivots, optimal

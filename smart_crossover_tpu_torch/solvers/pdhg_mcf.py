@@ -28,6 +28,7 @@ from smart_crossover_tpu_torch.solvers.pdhg import (
     _pdhg_core,
     _pdhg_core_halpern,
 )
+from smart_crossover_tpu_torch.utils import trace
 
 
 def _start_vector(n: int, seed: int = 0) -> np.ndarray:
@@ -64,29 +65,31 @@ def pdhg_mcf_device(mcf, tol: float = 1e-4, max_iters: int = 5000,
         raise ValueError(f"pdhg_mcf_device: unknown mode {mode!r}")
     t0 = time.perf_counter()
     dev = resolve_device(device)
-    if dtype is None:
-        dtype = device_float(dev)
-    m, n = len(mcf.b), len(mcf.c)
-    A = mcf.A.tocoo()
-    op = CSROperator(A.row, A.col, A.data, (m, n), dtype, dev)
+    with trace.span("scx.pdhg", dev):
+        if dtype is None:
+            dtype = device_float(dev)
+        m, n = len(mcf.b), len(mcf.c)
+        A = mcf.A.tocoo()
+        op = CSROperator(A.row, A.col, A.data, (m, n), dtype, dev)
 
-    def dev_t(v):
-        return torch.as_tensor(np.asarray(v, np.float64)).to(
-            device=dev, dtype=dtype)
+        def dev_t(v):
+            return torch.as_tensor(np.asarray(v, np.float64)).to(
+                device=dev, dtype=dtype)
 
-    c, u, b = dev_t(mcf.c), dev_t(mcf.u), dev_t(mcf.b)
-    l = torch.zeros(n, dtype=dtype, device=dev)
-    xs = dev_t(x0) if x0 is not None else torch.clamp(
-        torch.zeros(n, dtype=dtype, device=dev), l, u)
-    ys = dev_t(y0) if y0 is not None else torch.zeros(m, dtype=dtype,
-                                                       device=dev)
-    opnorm = _power_opnorm(op, dev_t(_start_vector(n)))
-    is_eq = torch.ones(m, dtype=torch.bool, device=dev)
-    core = _pdhg_core_halpern if mode == "halpern" else _pdhg_core
-    x, y, iters, done = core(op, b, c, l, u, is_eq, opnorm, xs, ys,
-                             max_iters=max_iters, check_every=check_every,
-                             restart_period=restart_period, tol=tol)
-    x = x.double().cpu().numpy()
-    y = y.double().cpu().numpy()
+        c, u, b = dev_t(mcf.c), dev_t(mcf.u), dev_t(mcf.b)
+        l = torch.zeros(n, dtype=dtype, device=dev)
+        xs = dev_t(x0) if x0 is not None else torch.clamp(
+            torch.zeros(n, dtype=dtype, device=dev), l, u)
+        ys = dev_t(y0) if y0 is not None else torch.zeros(m, dtype=dtype,
+                                                           device=dev)
+        opnorm = _power_opnorm(op, dev_t(_start_vector(n)))
+        is_eq = torch.ones(m, dtype=torch.bool, device=dev)
+        core = _pdhg_core_halpern if mode == "halpern" else _pdhg_core
+        x, y, iters, done = core(op, b, c, l, u, is_eq, opnorm, xs, ys,
+                                 max_iters=max_iters, check_every=check_every,
+                                 restart_period=restart_period, tol=tol)
+        x = x.double().cpu().numpy()
+        y = y.double().cpu().numpy()
+        trace.count("pdhg.iters", int(iters))
     runtime = datetime.timedelta(seconds=time.perf_counter() - t0)
     return x, y, int(iters), bool(done), runtime
