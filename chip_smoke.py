@@ -23,11 +23,19 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           64 x 256^2 and at 16 x 784^2 (the benchmark's shapes and seeds,
           smart_crossover_tpu_torch/bench.py): every instance certified by
           the host f64 certifier, both kernels launched, stage split,
-          certified instances/s;
+          certified instances/s; the push kernel launched once a call;
+  push    the push kernel against its plain version, the host-driven
+          loop, on the inputs the main path gives it: the push of a
+          batched_tnet_exact_device call on 16 DOTmark-like 32 x 32
+          white-noise pairs (16 x 1024^2) and of sinkhorn then TNET on four
+          MNIST-like pairs (B = 1, 73-168 pixels an image): X and the
+          steps equal bit for bit, one launch a call, the median ms of
+          each;
   bench   `python -m smart_crossover_tpu_torch bench` in a subprocess at
           full size (both rows): rc 0, every instance certified and
-          optimal on the card, K1 and K2 launched once per timed call, the
-          same card; its certified instances/s beside main's; then, each in
+          optimal on the card, K1, K2 and the push kernel launched once
+          per timed call, the same card; its certified instances/s beside
+          main's; then, each in
           its own subprocess, `bench --cell serve_16x128x128x16` (rc 0,
           256/256 certified and optimal on the card, K1 and K2 once per
           dispatch), `bench --cell goto17_cnet_mcf` and `--cell
@@ -45,7 +53,8 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           sinkhorn(ot) through K1 (one launch, B = 1, against its plain
           version on the card), then network_crossover with TNET and
           CNET_OT, each OPTIMAL and equal to main_16x784x784's certified
-          objective to 1e-9; TNET's basis certified;
+          objective to 1e-9; TNET's basis certified and its push one
+          launch of the push kernel;
   network_crossover_goto128
           CNET_MCF on a degree-regular GOTO-like MCF (128^2 nodes, 98,304
           arcs) from HiGHS's optimum plus noise, equal to HiGHS to 1e-9,
@@ -186,7 +195,9 @@ K1 and K2 add their launches on the sharded routes and per serving
 dispatch, K1 in the drivers' `total` mode on its OT pair and in the
 walkthrough's two demos, K3-K5 on both GOTO-17 rows and the drivers'
 GOTO-128 `total` run, each kernel on the staircase row, in the soak and
-in the device-simplex bench) and, last,
+in the device-simplex bench; the push kernel, last, with its ms on the
+push phase's inputs and its launches on both main rows and in TNET)
+and, last,
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.  It imports nothing of JAX.
 """
@@ -555,6 +566,8 @@ def phase_main(scx, B, S, D, seed, reps):
     require(counts["sinkhorn_fused"] > 0
             and counts["transport_simplex_mega"] > 0,
             f"a kernel was not launched on the OT path: {counts}")
+    require(counts["tree_push"] == 1,
+            f"the push kernel ran {counts['tree_push']} times in one call")
     require(k2_cluster > 1, f"K2 ran {k2_cluster} block per instance")
     return counts, cobj, rec["certified_instances_per_s"]
 
@@ -605,8 +618,9 @@ def phase_bench(torch, main_ips):
                 and row["all_optimal_device"], f"bench {c}: not correct")
         per = row["launches_per_call"]
         require(per["sinkhorn_fused"] == 1
-                and per["transport_simplex_mega"] == 1,
-                f"bench {c}: K1/K2 launches per call {per}")
+                and per["transport_simplex_mega"] == 1
+                and per["tree_push"] == 1,
+                f"bench {c}: K1/K2/push launches per call {per}")
     rows = {}
     for cell in NAMED_ROWS:
         res, seconds = run_bench("--cell", cell)
@@ -643,6 +657,118 @@ def phase_bench(torch, main_ips):
             and stair["certificate"]["on_wide_box"] == 0,
             f"ipm_stair: {stair['certificate']}")
     return rows
+
+
+# ------------------------------------------------------------------ push
+
+def push_inputs(fn) -> list:
+    """The input X of every push that ``fn()`` makes, the route's
+    ``push_to_bfs`` wrapped to keep a copy."""
+    from smart_crossover_tpu_torch.network_methods import tree_bi
+
+    seen, push = [], tree_bi.push_to_bfs
+
+    def keep(X, *args, **kwargs):
+        seen.append(X.clone())
+        return push(X, *args, **kwargs)
+
+    tree_bi.push_to_bfs = keep
+    try:
+        fn()
+    finally:
+        tree_bi.push_to_bfs = push
+    return seen
+
+
+def push_work(X, iters):
+    """(operations, bytes) of one push call: the clone reads and writes X,
+    the kernel reads it once for the row minima, and each step reads row
+    I1, column J1 and rows I1 and I2 again and writes four cells."""
+    B, S, D = X.shape
+    steps = float(iters.sum())
+    return (B * S * D + steps * (S + 3 * D),
+            X.element_size() * (3.0 * B * S * D + steps * (S + 3 * D + 4))
+            + 8.0 * B)
+
+
+def push_compare(label, X, reps, plain_reps):
+    """One input through the kernel and the plain loop: both results equal
+    bit for bit, one launch a call, the median ms of each."""
+    import torch
+
+    from smart_crossover_tpu_torch import _build
+    from smart_crossover_tpu_torch.ops.tree import (
+        push_to_bfs,
+        push_to_bfs_plain,
+    )
+
+    push_to_bfs(X)                                # warm-up
+    torch.cuda.synchronize()
+    n0 = _build.LAUNCHES["tree_push"]
+    (Xk, ik), ms, _ = sync_time(lambda: push_to_bfs(X), reps)
+    launches = (_build.LAUNCHES["tree_push"] - n0) / reps
+    (Xp, ip), plain_ms, _ = sync_time(lambda: push_to_bfs_plain(X),
+                                      plain_reps)
+    same = bool(torch.equal(Xk, Xp) and torch.equal(ik, ip))
+    b_ms, b_by = bound(*push_work(X, ik))
+    rec = {"input": label, "shape": list(X.shape), "dtype": str(X.dtype),
+           "steps_max": int(ik.max()), "steps_mean": float(ik.float().mean()),
+           "ms": ms, "plain_ms": plain_ms, "launches_per_call": launches,
+           "bound_ms": b_ms, "bound_by": b_by, "equal": same}
+    require(same, f"push {label}: the kernel and the plain loop differ")
+    require(launches == 1, f"push {label}: {launches} launches a call")
+    return rec
+
+
+def phase_push(scx):
+    """The push kernel on the inputs the main path gives it: one
+    batched_tnet_exact_device call on 16 DOTmark-like 32 x 32 white-noise
+    pairs (16 x 1024^2) and sinkhorn then TNET on four MNIST-like pairs
+    (B = 1), each push held to the plain loop bit for bit.  Returns the
+    kernel's summary entry: its bound is the bytes at the HBM rate, far
+    below the time the serial chain of steps takes."""
+    from smart_crossover_tpu_torch.data.ot_gen import (
+        images_to_ot,
+        synthetic_digits,
+    )
+
+    rng = np.random.default_rng(20)
+    side = 32
+    s = rng.uniform(0.0, 1.0, (16, side * side))
+    d = rng.uniform(0.0, 1.0, (16, side * side))
+    r, c = np.divmod(np.arange(side * side), side)
+    C = ((r[:, None] - r[None, :]) ** 2 + (c[:, None] - c[None, :]) ** 2)
+    M = np.broadcast_to(C.astype(np.float64), (16,) + C.shape)
+    s, d, M = to_cuda(s / s.sum(1, keepdims=True),
+                      d / d.sum(1, keepdims=True), M)
+    batch = push_inputs(lambda: scx.batched_tnet_exact_device(
+        s, d, M, reg=REG, sinkhorn_iters=SINKHORN_ITERS,
+        max_pivots=MAX_PIVOTS))
+    require(len(batch) == 1, f"{len(batch)} pushes in one batched call")
+    rows = [push_compare("dotmark_16x1024x1024", batch[0], 10, 2)]
+    imgs = synthetic_digits(8, seed=20)
+    for q in range(4):
+        ot = images_to_ot(imgs[2 * q], imgs[2 * q + 1])
+
+        def tnet():
+            x = scx.sinkhorn(ot, reg=REG, num_iters=SINKHORN_ITERS)
+            scx.network_crossover(x, ot=ot, method="tnet")
+
+        pushes = push_inputs(tnet)
+        require(len(pushes) == 1, f"{len(pushes)} pushes in one TNET call")
+        rows.append(push_compare(f"mnist_pair{q}", pushes[0], 20, 3))
+    emit({"phase": "push", "inputs": rows})
+    big, mnist = rows[0], rows[1:]
+    entry = {"name": "tree_push", "route": "cuda",
+             "source": "csrc/tree_push.cu",
+             "replaces": "none: the JAX package's lax.while_loop; the "
+                         "port's host-driven loop",
+             "max_abs_err": 0.0, "ms": big["ms"], "plain_ms": big["plain_ms"],
+             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+             "library_ms": None, "steps_max": big["steps_max"]}
+    for key in ("ms", "plain_ms", "bound_ms", "shape", "steps_max"):
+        entry[f"{key}_mnist"] = [r[key] for r in mnist]
+    return entry
 
 
 # ------------------------------------------------------ network crossover
@@ -706,9 +832,11 @@ def phase_network_crossover(scx, cert_obj):
     require(dplan <= K1_PLAN_RTOL * pmax, f"K1 at B = 1 differs: {dplan}")
     for method in ("tnet", "cnet_ot"):
         stats = {}
+        scx.reset_kernel_launch_counts()
         t0 = time.perf_counter()
         out = scx.network_crossover(x, ot=ot, method=method, stats=stats)
         wall = time.perf_counter() - t0
+        launches = scx.kernel_launch_counts()
         rel = abs(out.obj_val - cert_obj) / abs(cert_obj)
         rec[method] = {"status": out.status, "obj": out.obj_val,
                        "rel_to_certified": rel, "wall_s": wall,
@@ -721,9 +849,14 @@ def phase_network_crossover(scx, cert_obj):
                                      s, d, M)
             rec[method].update(basis_certified=c.ok,
                                basis_max_feas_err=c.max_feas_err,
-                               basis_min_reduced_cost=c.min_rcost)
+                               basis_min_reduced_cost=c.min_rcost,
+                               push_launches=launches["tree_push"])
             require(c.ok, f"TNET basis not certified: {c.reason}")
+            require(launches["tree_push"] == 1,
+                    f"TNET ran the push kernel {launches['tree_push']} "
+                    f"times")
     emit(rec)
+    counts["tree_push"] = rec["tnet"]["push_launches"]
     return counts, k1_ms, plain_ms
 
 
@@ -2588,6 +2721,8 @@ def main() -> int:
     kernels = [phase_k1(), phase_k2(scx)]
     counts, cobj, ips = phase_main(scx, 64, 256, 256, seed=0, reps=5)
     counts7, cobj7, ips7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
+    push = phase_push(scx)
+    push.update(launches=counts["tree_push"], launches_784=counts7["tree_push"])
     named = phase_bench(torch, {"ot_64x256x256": ips,
                                 "ot_16x784x784": ips7})
     serve_row = named["serve_16x128x128x16"]
@@ -2598,6 +2733,7 @@ def main() -> int:
         k["launches_serve_per_dispatch"] = \
             serve_row["launches_per_dispatch"][k["name"]]
     nc_counts, k1_b1_ms, k1_b1_plain = phase_network_crossover(scx, cobj7[0])
+    push["launches_network_crossover_tnet"] = nc_counts["tree_push"]
     goto_fo, goto_warm, goto_x = phase_goto(scx)
     goto17 = phase_goto17(scx, goto_row)
     exact = phase_tnet_exact(scx, cobj)
@@ -2681,7 +2817,7 @@ def main() -> int:
            or m.split(".")[0] == "smart_crossover_tpu"]
     require(not bad, f"JAX modules were imported: {bad[:5]}")
     print(smi, flush=True)
-    emit({"kernels": kernels})
+    emit({"kernels": kernels + [push]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

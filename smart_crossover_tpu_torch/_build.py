@@ -26,7 +26,8 @@ from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
-SOURCES = ("sinkhorn.cu", "transport_simplex_mega.cu", "pdhg_cluster.cu")
+SOURCES = ("sinkhorn.cu", "transport_simplex_mega.cu", "pdhg_cluster.cu",
+           "tree_push.cu")
 
 
 def _writable(path: Path) -> bool:
@@ -56,11 +57,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"sinkhorn_fused": 0, "transport_simplex_mega": 0,
-            "pdhg_chunk": 0, "halpern_chunk": 0, "pdhg_batched": 0}
+            "pdhg_chunk": 0, "halpern_chunk": 0, "pdhg_batched": 0,
+            "tree_push": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     # s, d, M, plan, f, g, B, S, D, reg, num_iters, C, n_res, stream
     "scx_sinkhorn_fused": [_P] * 6 + [_I, _I, _I, _F, _I, _I, _I, _P],
@@ -93,6 +96,11 @@ _SIGNATURES = {
     "scx_halpern_cluster_smem_bytes": [_I] * 4,
     # B, m, n, C, n_res -> resident clusters (or -error)
     "scx_halpern_cluster_max_clusters": [_I] * 5,
+    # X, iters, scratch, B, S, D, tol, max_iter, f64, stream
+    "scx_tree_push": [_P] * 3 + [_I] * 3 + [_D, _I, _I, _P],
+    # S, f64 -> bytes of global scratch a block needs (0: shared memory
+    # holds its cache; or -error)
+    "scx_tree_push_scratch_bytes": [_I] * 2,
 }
 
 _lib = None

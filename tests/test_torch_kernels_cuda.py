@@ -29,6 +29,10 @@ from smart_crossover_tpu_torch.parallel.batched import (
     batched_tnet,
     batched_tnet_exact_device,
 )
+from smart_crossover_tpu_torch.network_methods import tree_bi
+from smart_crossover_tpu_torch.ops.tree import push_to_bfs, push_to_bfs_plain
+from smart_crossover_tpu_torch.utils import trace
+from tests import push_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -808,3 +812,107 @@ def test_ipm_leaves_tf32_off_inside(cuda, monkeypatch):
         assert torch.equal(tf["x"], full["x"])
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def _big(B, S, D, seed, dtype=torch.float32):
+    return lambda: (push_cases.tree_flows(B, S, D, seed, dtype=dtype,
+                                          device="cuda"), {})
+
+
+# cases built on the card: the main path's batch, and rows too many for a
+# block's shared memory, whose row minima go to global scratch
+CARD_CASES = {
+    "tree_16x1024x1024": _big(16, 1024, 1024, seed=71),
+    "scratch_1x29000x3": _big(1, 29000, 3, seed=81),
+    "scratch_float64_2x20000x4": _big(2, 20000, 4, seed=82, dtype=torch.float64),
+}
+
+
+@pytest.mark.parametrize("case", [*push_cases.CASES, *CARD_CASES])
+def test_push_kernel_matches_plain(cuda, case):
+    """One launch of the push kernel gives the host-driven loop's X and
+    per-instance steps exactly.  The cases of ``tests/push_cases.py`` are
+    built on the CPU, where the plain loop is held to the JAX package on
+    the same tensors."""
+    if case in CARD_CASES:
+        X, kw = CARD_CASES[case]()
+    else:
+        X, kw = push_cases.CASES[case]()
+        X = X.to(cuda)
+    n0 = _build.kernel_launch_counts()["tree_push"]
+    Xk, ik = push_to_bfs(X, **kw)
+    torch.cuda.synchronize()
+    assert _build.kernel_launch_counts()["tree_push"] == n0 + 1
+    Xp, ip = push_to_bfs_plain(X, **kw)
+    assert Xk.dtype == X.dtype and ik.dtype == torch.int64
+    assert torch.equal(ik, ip) and torch.equal(Xk, Xp)
+    per_block = _build.library().scx_tree_push_scratch_bytes(
+        X.shape[1], int(X.dtype == torch.float64))
+    assert (per_block > 0) == case.startswith("scratch")
+    if case == "max_iter_1":
+        assert ik.tolist() == [1] * X.shape[0]
+    elif case == "feasible_beside_long":
+        assert int(ik[0]) == 0 and int(ik[1]) > 0
+    else:
+        assert int(ik.max()) > 0
+    if case != "max_iter_1":
+        assert bool((Xk >= -kw.get("tol", 0.0)).all())
+
+
+def test_push_kernel_counts_in_the_trace(cuda):
+    X = push_cases.tree_flows(3, 137, 141, seed=79, device="cuda")
+    n0 = _build.kernel_launch_counts()["tree_push"]
+    with trace.recording() as st:
+        with trace.span("scx.push", X.device):
+            _, iters = push_to_bfs(X)
+    c = st.summary()["scx.push"]["counters"]
+    assert c == {"push.steps": int(iters.max())}
+    assert _build.kernel_launch_counts()["tree_push"] == n0 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.int64])
+def test_push_refuses_other_dtypes_on_the_card(cuda, dtype):
+    """On the card the push is the kernel or an error, never the plain
+    loop."""
+    X = push_cases.tree_flows(1, 13, 29, seed=83, device="cuda")
+    n0 = _build.kernel_launch_counts()["tree_push"]
+    with pytest.raises(TypeError, match="float32 or float64"):
+        push_to_bfs(X.to(dtype))
+    assert _build.kernel_launch_counts()["tree_push"] == n0
+
+
+def _dotmark(B, side, seed):
+    """DOTmark-like pairs: white-noise images of side x side pixels, mass 1
+    each, squared Euclidean cost on the grid."""
+    rng = np.random.default_rng(seed)
+    n = side * side
+    s = rng.uniform(0.0, 1.0, (B, n))
+    d = rng.uniform(0.0, 1.0, (B, n))
+    r, c = np.divmod(np.arange(n), side)
+    C = ((r[:, None] - r[None, :]) ** 2 + (c[:, None] - c[None, :]) ** 2)
+    M = np.broadcast_to(C.astype(np.float64), (B, n, n)).copy()
+    return s / s.sum(1, keepdims=True), d / d.sum(1, keepdims=True), M
+
+
+def test_exact_route_is_unchanged_by_the_push_kernel(cuda, monkeypatch):
+    """The batched route returns the same vertices, bases and objectives
+    with the push on the kernel and on the host-driven loop."""
+    s, d, M = _dotmark(4, 32, seed=80)
+
+    def route():
+        n0 = _build.kernel_launch_counts()["tree_push"]
+        out = batched_tnet_exact_device(s, d, M, reg=0.005,
+                                        sinkhorn_iters=1000,
+                                        max_pivots=20000, device=cuda)
+        torch.cuda.synchronize()
+        return out, _build.kernel_launch_counts()["tree_push"] - n0
+
+    kernel, n_kernel = route()
+    monkeypatch.setattr(tree_bi, "push_to_bfs", push_to_bfs_plain)
+    plain, n_plain = route()
+    assert (n_kernel, n_plain) == (1, 0)
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+    assert bool(kernel[4].all())
+

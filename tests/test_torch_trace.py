@@ -263,7 +263,7 @@ def test_tnet_emits_its_spans_and_counters():
     assert root["counters"]["cg.pivots"] == stats["cg_pivots"]
     assert root["counters"]["push.iters"] == stats["push_iters"]
     steps = s["scx.tree_basis"]["counters"]["push.steps"]
-    assert steps >= stats["push_iters"] and steps % 16 == 0
+    assert steps == stats["push_iters"]
     assert s["scx.boruvka_flow"]["counters"]["boruvka.rounds"] >= 1
     assert stats["cg_pivots"] + stats["push_iters"] == out.iter_count
     for name, key in (("scx.ranking", "ranking_s"),
@@ -326,7 +326,7 @@ def test_the_batched_route_emits_every_stage():
     assert route["counters"]["boruvka.rounds"] == \
         sm["scx.boruvka_flow"]["counters"]["boruvka.rounds"] \
         + sm["scx.boruvka_support"]["counters"]["boruvka.rounds"]
-    assert route["counters"]["push.steps"] >= int(push.max())
+    assert route["counters"]["push.steps"] == int(push.max())
     assert sum(sm[n]["host_s"] for n in ROUTE) <= route["host_s"]
     assert sm["scx.certify"]["counters"].get("certify.rejected") == \
         sum(not c.ok for c in certs) == 0

@@ -34,7 +34,13 @@ from smart_crossover_tpu_torch.ops.transport_simplex_anc import (
 from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
     build_parent_from_mask,
 )
-from smart_crossover_tpu_torch.ops.tree import bipartite_tree_solve, push_to_bfs
+from smart_crossover_tpu_torch import _build
+from smart_crossover_tpu_torch.ops.tree import (
+    bipartite_tree_solve,
+    push_to_bfs,
+    push_to_bfs_plain,
+)
+from tests import push_cases
 
 SHAPES = [(2, 13, 29), (3, 24, 40), (2, 48, 24)]
 
@@ -122,6 +128,39 @@ def test_push_respects_max_iter():
     jXp, jit = j_push(jnp.asarray(X[0].numpy()), max_iter=1)
     assert int(iters[0]) == int(jit) == 1
     np.testing.assert_allclose(Xp[0].numpy(), np.asarray(jXp), atol=1e-15)
+
+
+@pytest.mark.parametrize("case", list(push_cases.CASES))
+def test_push_cases_match_jax(case):
+    """The inputs on which the card tests hold the kernel to the plain loop:
+    the plain loop's X and steps equal the JAX package's push, instance by
+    instance, so the kernel is held to the JAX package through them."""
+    X, kw = push_cases.CASES[case]()
+    Xp, iters = push_to_bfs(X, **kw)
+    for b in range(X.shape[0]):
+        jX, jit = j_push(jnp.asarray(X[b].numpy()), **kw)
+        assert int(iters[b]) == int(jit)
+        np.testing.assert_array_equal(Xp[b].numpy(), np.asarray(jX))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_push_runs_the_plain_loop_on_the_cpu(dtype, monkeypatch):
+    """A CPU tensor never reaches the kernel library: the plain loop's X
+    and counts, no launch counted."""
+    def no_library():
+        raise AssertionError("the CPU path must not load the kernels")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    rng, s, d = _batch(2, 13, 29, seed=16)
+    masks = torch.from_numpy(_jmasks(_weights(rng, 2, 13, 29, "continuous")))
+    X = bipartite_tree_solve(masks, torch.from_numpy(s).to(dtype),
+                             torch.from_numpy(d).to(dtype))
+    n0 = _build.LAUNCHES["tree_push"]
+    Xp, iters = push_to_bfs(X)
+    Xq, jters = push_to_bfs_plain(X)
+    assert torch.equal(Xp, Xq) and torch.equal(iters, jters)
+    assert int(iters.max()) > 0 and (Xp >= 0).all()
+    assert _build.LAUNCHES["tree_push"] == n0
 
 
 @pytest.mark.parametrize("shape", SHAPES)
