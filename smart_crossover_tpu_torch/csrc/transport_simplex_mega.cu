@@ -8,6 +8,8 @@
 //             FMA; ties to the lowest flat index; stop at dmin >= -tol;
 //   ratio     theta = min Xv over the cycle's decreasing tree cells; the
 //             leaving arc is the lowest node id with ratio <= theta + 1e-12;
+//             a pivot with theta <= 1e-12 moves no flow: it is counted as
+//             degenerate (stats[b, 2]);
 //   entering  the new tree cell's cost is the exact M[ei, ej];
 //   refresh   every `refresh` pivots and at exit,
 //             pot[v] = (-1)^dep[v] sum_k N[v,k] (-1)^dep[k] w[k].
@@ -95,7 +97,7 @@ struct Args {
   float* Xv_out;
   float* w_out;
   float* pot_out;
-  int* stats;
+  int* stats;                     // (B, 3): pivots, optimal, degenerate
   int S, D, C, n_smem, mask_smem;
   float tol;
   int max_pivots, refresh;
@@ -311,7 +313,8 @@ __device__ __forceinline__ uint32_t dec_word(const Inst& I, int w) {
 }
 
 // One pivot on the entering cell flat = ei * D + ej with reduced cost dmin.
-__device__ void pivot(Inst& I, Scratch& sc, cg::cluster_group& cl,
+// Returns, in every thread, whether it was degenerate (theta <= 1e-12).
+__device__ bool pivot(Inst& I, Scratch& sc, cg::cluster_group& cl,
                       float dmin, int flat) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int S = I.S, V = I.V, WN = I.WN;
@@ -432,6 +435,7 @@ __device__ void pivot(Inst& I, Scratch& sc, cg::cluster_group& cl,
     }
   }
   cl.sync();                 // barrier 3: dep and pot are whole again
+  return pv.theta <= 1e-12f;
 }
 
 __global__ void __launch_bounds__(kThreads, 1) mega_kernel(const Args a) {
@@ -490,7 +494,7 @@ __global__ void __launch_bounds__(kThreads, 1) mega_kernel(const Args a) {
   // Loop structure of the TPU kernel: refresh, price; if not optimal, run
   // up to `refresh` pivots, stopping early where the drifted pricing finds
   // nothing to enter; the refreshed check alone decides optimality.
-  int it = 0;
+  int it = 0, degenerate = 0;
   bool optimal = false;
   while (it < a.max_pivots) {
     refresh_pot(I, cl);
@@ -500,7 +504,7 @@ __global__ void __launch_bounds__(kThreads, 1) mega_kernel(const Args a) {
     if (dmin >= -a.tol) { optimal = true; break; }
     const int start = it;
     while (true) {
-      pivot(I, sc, cl, dmin, flat);
+      degenerate += pivot(I, sc, cl, dmin, flat) ? 1 : 0;
       ++it;
       if (it >= start + a.refresh || it >= a.max_pivots) break;
       price(I, sc, cl, dmin, flat);
@@ -517,8 +521,9 @@ __global__ void __launch_bounds__(kThreads, 1) mega_kernel(const Args a) {
       a.pot_out[(size_t)b * V + k] = I.pot[k];
     }
     if (tid == 0) {
-      a.stats[2 * b] = it;
-      a.stats[2 * b + 1] = optimal ? 1 : 0;
+      a.stats[3 * b] = it;
+      a.stats[3 * b + 1] = optimal ? 1 : 0;
+      a.stats[3 * b + 2] = degenerate;
     }
   }
   unsigned char* mo = a.mask_out + (size_t)b * S * D + (size_t)I.m0 * D;

@@ -41,8 +41,16 @@ def mcf_flow_indicators(x, tails, heads, u, num_nodes: int):
 
 
 def ot_flow_indicators(X, s, d):
-    """``max(X / s_i, X / d_j)`` per cell: X (B, S, D), s (B, S), d (B, D)."""
-    return torch.maximum(X / s[:, :, None], X / d[:, None, :])
+    """``max(X / s_i, X / d_j)`` per cell: X (B, S, D), s (B, S), d (B, D).
+
+    A term whose mass is 0 counts 0 (not 0 / 0 = NaN, which would win the
+    maximum and leave Borůvka without a finite edge at that node), so a
+    zero-mass row or column still joins the spanning tree.  Where every
+    mass is positive this is the plain quotient, bit for bit.  The JAX
+    package keeps the NaN (ROADMAP fault 3.15)."""
+    s, d = s[:, :, None], d[:, None, :]
+    return torch.maximum(torch.where(s > 0, X / s, 0.0),
+                         torch.where(d > 0, X / d, 0.0))
 
 
 def sort_flows(indicators):

@@ -12,7 +12,8 @@ kernel's pivot rule exactly:
 * pricing: Dantzig over non-basic cells of M - u - v, ties to the lowest
   flat index; optimal when dmin >= -tol;
 * ratio test: theta = min Xv over the cycle's decreasing cells; the leaving
-  arc is the lowest node id with ratio <= theta + 1e-12;
+  arc is the lowest node id with ratio <= theta + 1e-12; a pivot with
+  theta <= 1e-12 moves no flow and is counted as degenerate;
 * the entering tree cell's cost is the exact M[ei, ej];
 * potentials are refreshed from the tree every ``refresh`` pivots and at
   exit, pot[v] = (-1)^dep[v] sum_k N[v,k] (-1)^dep[k] w[k]; between
@@ -51,6 +52,12 @@ from smart_crossover_tpu_torch.utils import trace
 
 _STATIC_SMEM = 1024      # the kernel's static shared memory, at most
 _MAX_CLUSTER = 8         # the portable thread-block cluster size
+# the price of a cell at a zero-mass node off the starting basis: it never
+# enters (``batched_transport_simplex_mega``); finite, so that prices stay so
+ZERO_MASS_COST = 1e30
+# a pivot whose ratio theta is at most this moves no flow (degenerate): the
+# slack of the leaving arc's ratio test, float32 in both versions
+DEGENERATE_THETA = 1e-12
 
 # plan of the last kernel launch, with the card's answer to how many of
 # its clusters can be resident at once (read by chip_smoke.py)
@@ -178,6 +185,7 @@ def _pivot(st, go, dmin, ei, ej):
                        0.0).to(Xv.dtype)
     ratios = torch.where(sign < -0.5, Xv, inf)
     theta = ratios.amin(1)
+    st["theta"] = theta
     cl = torch.where(ratios <= (theta + 1e-12)[:, None], vids, V).amin(1)
 
     dep_cl = dep[b, cl]
@@ -236,7 +244,9 @@ def transport_simplex_mega_plain(state, tol: float = 1e-7,
                                  max_pivots: int = 5000, refresh: int = 128):
     """Plain tensor version of the kernel, from a ``mega_setup`` state.
 
-    Returns (parent, Xv, w, pot, mask, pivots, optimal), batched.
+    Returns (parent, Xv, w, pot, mask, pivots, optimal, degenerate),
+    batched; ``degenerate`` counts the pivots whose ratio theta was at
+    most ``DEGENERATE_THETA`` (they move no flow).
     """
     M = state["M"]
     B = M.shape[0]
@@ -246,6 +256,7 @@ def transport_simplex_mega_plain(state, tol: float = 1e-7,
           "w": state["w"].clone(), "Xv": state["Xv"].clone(),
           "pot": torch.zeros_like(state["w"])}
     it = torch.zeros(B, dtype=torch.int64, device=dev)
+    degenerate = torch.zeros_like(it)
     start = torch.zeros_like(it)
     optimal = torch.zeros(B, dtype=torch.bool, device=dev)
     finished = torch.full((B,), max_pivots <= 0, dtype=torch.bool,
@@ -265,13 +276,15 @@ def transport_simplex_mega_plain(state, tol: float = 1e-7,
         go = ~finished & ~now_done
         _pivot(st, go, dmin, ei, ej)
         it = it + go
+        degenerate = degenerate + (go & (st["theta"] <= DEGENERATE_THETA))
         chunk_end = ~finished & (now_done | (it >= start + refresh)
                                  | (it >= max_pivots))
         capped = chunk_end & (it >= max_pivots)
         finished |= capped
         need_refresh = chunk_end & ~capped
     pot = _refresh_pot(st["N"], st["dep"], st["w"])
-    return (st["parent"], st["Xv"], st["w"], pot, st["mask"], it, optimal)
+    return (st["parent"], st["Xv"], st["w"], pot, st["mask"], it, optimal,
+            degenerate)
 
 
 # ------------------------------------------------ packed rows, for the tests
@@ -388,7 +401,7 @@ def _transport_simplex_mega_cuda(state, tol, max_pivots, refresh,
     Xv = torch.empty_like(state["Xv"])
     w = torch.empty_like(state["w"])
     pot = torch.empty_like(state["w"])
-    stats = torch.empty(B, 2, **i32)
+    stats = torch.empty(B, 3, **i32)
     stream = torch.cuda.current_stream(M.device).cuda_stream
     with torch.cuda.device(M.device):
         active = _max_active_clusters(lib, B, plan, S, D)
@@ -404,7 +417,8 @@ def _transport_simplex_mega_cuda(state, tol, max_pivots, refresh,
     _build.LAUNCHES["transport_simplex_mega"] += 1
     LAST_LAUNCH.clear()
     LAST_LAUNCH.update(plan, shape=[B, S, D], max_active_clusters=active)
-    return parent, Xv, w, pot, mask, stats[:, 0].long(), stats[:, 1] != 0
+    return (parent, Xv, w, pot, mask, stats[:, 0].long(), stats[:, 1] != 0,
+            stats[:, 2].long())
 
 
 def transport_simplex_mega_state(state, tol: float = 1e-7,
@@ -412,7 +426,8 @@ def transport_simplex_mega_state(state, tol: float = 1e-7,
                                  *, smem_budget: int = SMEM_PER_BLOCK):
     """Pivot a ``mega_setup`` state to optimality: the kernel for CUDA
     tensors, the plain version for CPU tensors.  Returns (parent, Xv, w,
-    pot, mask, pivots, optimal).  ``smem_budget`` reaches
+    pot, mask, pivots, optimal, degenerate), ``degenerate`` the pivots of
+    each instance that moved no flow.  ``smem_budget`` reaches
     ``cluster_plan`` (tests lower it)."""
     if state["M"].is_cuda:
         return _transport_simplex_mega_cuda(state, tol, max_pivots, refresh,
@@ -421,6 +436,36 @@ def transport_simplex_mega_state(state, tol: float = 1e-7,
         raise ValueError(
             f"transport_simplex_mega: no kernel for {state['M'].device}")
     return transport_simplex_mega_plain(state, tol, max_pivots, refresh)
+
+
+def complete_zero_masses(M, mask, pot, live_s, live_d):
+    """The basis of a transport with zero masses, from the optimal basis
+    of the transport between its nonzero-mass nodes.
+
+    Every arc at a zero-mass node carries 0, so the plan is already
+    optimal; what the zero-mass nodes still need is potentials under
+    which no cell's reduced cost M - u - v is negative, and a tree arc
+    each that is tight under them.  Given the potentials ``pot`` (B, V)
+    of the nonzero nodes (u on rows, v on columns), each zero-mass column
+    takes v = min over nonzero rows of M - u, and then each zero-mass row
+    u = min over all columns of M - v, each hung from its minimising node
+    (ties to the lowest index): every inequality holds by construction.
+    ``mask`` must join the nonzero nodes among themselves (S+ + D+ - 1
+    arcs); its arcs at zero-mass nodes are replaced.  Returns the new
+    mask (B, S, D)."""
+    S, D = M.shape[1:]
+    u, v = pot[:, :S], pot[:, S:]
+    inf = torch.tensor(math.inf, dtype=pot.dtype, device=pot.device)
+    v_col, i_col = torch.where(live_s[:, :, None], M - u[:, :, None],
+                               inf).min(1)
+    v = torch.where(live_d, v, v_col)
+    j_row = (M - v[:, None, :]).argmin(2)
+    rows = torch.arange(S, device=M.device)
+    cols = torch.arange(D, device=M.device)
+    hang = ((rows[None, :, None] == i_col[:, None, :])
+            & ~live_d[:, None, :])
+    hang |= (cols[None, None, :] == j_row[:, :, None]) & ~live_s[:, :, None]
+    return (mask & live_s[:, :, None] & live_d[:, None, :]) | hang
 
 
 def batched_transport_simplex_mega(X, Bm, M, s=None, d=None,
@@ -432,20 +477,48 @@ def batched_transport_simplex_mega(X, Bm, M, s=None, d=None,
 
     Same contract as the other device engines (and the JAX package's
     ``batched_transport_simplex_mega``): X (B, S, D) basic feasible plans,
-    Bm (B, S, D) spanning-tree masks, M (B, S, D) costs; s and d are
-    accepted and unused, as there.  ``interpret`` (the JAX package's Pallas
-    interpret mode) is a no-op: the route follows M's device.  Returns
-    (X_opt, Bm_opt, pivots, optimal) with batch dims; X_opt is float32, as
-    the pivot loop runs in float32.
+    Bm (B, S, D) spanning-tree masks, M (B, S, D) costs.  ``interpret``
+    (the JAX package's Pallas interpret mode) is a no-op: the route
+    follows M's device.  Returns (X_opt, Bm_opt, pivots, optimal) with
+    batch dims; X_opt is float32, as the pivot loop runs in float32.
+    While the tracer records, the batch's pivots and degenerate pivots
+    count as ``k2.pivots`` and ``k2.degenerate`` in ``scx.simplex_kernel``.
+
+    s and d (B, S), (B, D), unused in the JAX package, name the zero-mass
+    nodes where given.  Their arcs all carry 0, and a pivot that enters
+    one moves no flow: pivoting them into place took tens of thousands of
+    degenerate pivots on 784 x 784 pairs of mostly blank images.  So the
+    loop pivots the transport between the nonzero-mass nodes alone (every
+    other cell off Bm is priced at ``ZERO_MASS_COST``, so it never
+    enters), and ``complete_zero_masses`` then hangs the zero-mass nodes
+    in one step.  That needs Bm to join the nonzero nodes among
+    themselves, with the zero-mass ones in subtrees off them (the route's
+    Borůvka builds it so); an instance whose final basis does not is not
+    called optimal.  With every mass positive nothing changes.
     """
     B, S, D = M.shape
+    zeros = s is not None and d is not None
     with trace.span("scx.simplex_setup", M.device):
-        state = mega_setup(X, Bm, M)
+        Mk = M
+        if zeros:
+            live_s = torch.as_tensor(s, device=M.device) > 0
+            live_d = torch.as_tensor(d, device=M.device) > 0
+            live = live_s[:, :, None] & live_d[:, None, :]
+            Mk = torch.where(live | Bm.to(torch.bool), M, ZERO_MASS_COST)
+        state = mega_setup(X, Bm, Mk)
     with trace.span("scx.simplex_kernel", M.device):
-        parent, Xv, _, _, mask, pivots, optimal = \
+        parent, Xv, _, pot, mask, pivots, optimal, degenerate = \
             transport_simplex_mega_state(state, tol, max_pivots, refresh)
+        if trace.TRACER.recording_now():
+            trace.count("k2.pivots", int(pivots.sum()))
+            trace.count("k2.degenerate", int(degenerate.sum()))
     with trace.span("scx.rebuild", M.device):
         X_out = rebuild_plan(parent, Xv, S, D).clamp(min=0.0)
+        if zeros:
+            n_live = live_s.sum(1) + live_d.sum(1) - 1
+            optimal = optimal & ((mask & live).sum((1, 2)) == n_live)
+            mask = complete_zero_masses(M.to(pot.dtype), mask, pot, live_s,
+                                        live_d)
     return X_out, mask, pivots, optimal
 
 

@@ -131,6 +131,28 @@ def tnet_single(s, d, M, reg: float = 0.02, sinkhorn_iters: int = 200,
     return X[0], push[0], obj[0]
 
 
+# the basis check's tolerance on a plan's node balances and signs, over
+# the instance's largest mass: float32 flows drift from their basis's
+# exact vertex by up to ~1e-5 of it over 20,000 pivots, while a plan that
+# leaves out a node misses by that node's whole mass
+BASIS_CHECK_TOL = 1e-3
+
+
+def basis_check(X, Bm, s, d):
+    """Per instance, whether the plan X (B, S, D) can be the vertex of
+    the basis Bm: Bm holds S + D - 1 arcs, and X is non-negative and
+    meets s and d, within ``BASIS_CHECK_TOL`` of the instance's largest
+    mass.  One batched reduction on X's device, no host read."""
+    B, S, D = X.shape
+    X = X.to(s.dtype)
+    arcs = Bm.reshape(B, -1).sum(1) == S + D - 1
+    off = torch.maximum((X.sum(2) - s).abs().amax(1),
+                        (X.sum(1) - d).abs().amax(1))
+    off = torch.maximum(off, -X.reshape(B, -1).amin(1))
+    return arcs & (off <= BASIS_CHECK_TOL
+                   * torch.maximum(s.amax(1), d.amax(1)))
+
+
 def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
                               sinkhorn_iters: int = 1000,
                               max_pivots: int = 5000,
@@ -157,6 +179,13 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
             hand-written kernels); with ``device="cpu"`` in the input's
             dtype (the kernels through their plain versions).
 
+    Masses may be 0 (a blank pixel kept as a point).  ``optimal`` holds
+    only where the engine called the basis optimal and ``basis_check``
+    accepts its plan (span ``scx.basis_check``).  While the tracer
+    records, ``scx.route`` counts the batch's zero-mass nodes
+    (``route.zero_nodes``) and the instances the check turned down
+    (``route.refused``).
+
     Returns (X, obj, push_iters, pivots, optimal, basis_mask), batched
     tensors on ``device``; ``network_methods.certify`` recomputes the exact
     f64 vertex from basis_mask.
@@ -165,10 +194,24 @@ def batched_tnet_exact_device(s, d, M, reg: float = 0.005,
     dev = resolve_device(device, M)
     with trace.span("scx.route", dev):
         s, d, M = _on_device(s, d, M, dev)
+        recording = trace.TRACER.recording_now()
+        if recording:
+            trace.count("route.zero_nodes",
+                        int((s == 0).sum() + (d == 0).sum()))
         X0, push = _warm_start(s, d, M, reg, sinkhorn_iters)
         with trace.span("scx.boruvka_support", dev):
-            Bm0 = boruvka_bipartite_mst((X0 > 1e-12).to(M.dtype))
-        X, Bm, pivots, optimal = pivot(X0, Bm0, M, max_pivots=max_pivots)
+            # the support first, then arcs between nonzero masses: the
+            # tree joins the nonzero-mass nodes among themselves and hangs
+            # the zero-mass ones off them (the same tree where no mass is 0)
+            live = (s > 0)[:, :, None] & (d > 0)[:, None, :]
+            Bm0 = boruvka_bipartite_mst(2 * (X0 > 1e-12).to(M.dtype)
+                                        + live.to(M.dtype))
+        X, Bm, pivots, claimed = pivot(X0, Bm0, M, s, d,
+                                       max_pivots=max_pivots)
+        with trace.span("scx.basis_check", dev):
+            optimal = claimed & basis_check(X, Bm, s, d)
+            if recording:
+                trace.count("route.refused", int((claimed & ~optimal).sum()))
         obj = (X.to(M.dtype) * M).sum((1, 2))
     return X, obj, push, pivots, optimal, Bm
 

@@ -33,6 +33,7 @@ from smart_crossover_tpu_torch.network_methods import tree_bi
 from smart_crossover_tpu_torch.ops.tree import push_to_bfs, push_to_bfs_plain
 from smart_crossover_tpu_torch.utils import trace
 from tests import push_cases
+from tests.ot_grids import digit_grid, dotmark
 
 pytestmark = pytest.mark.cuda
 
@@ -882,23 +883,10 @@ def test_push_refuses_other_dtypes_on_the_card(cuda, dtype):
     assert _build.kernel_launch_counts()["tree_push"] == n0
 
 
-def _dotmark(B, side, seed):
-    """DOTmark-like pairs: white-noise images of side x side pixels, mass 1
-    each, squared Euclidean cost on the grid."""
-    rng = np.random.default_rng(seed)
-    n = side * side
-    s = rng.uniform(0.0, 1.0, (B, n))
-    d = rng.uniform(0.0, 1.0, (B, n))
-    r, c = np.divmod(np.arange(n), side)
-    C = ((r[:, None] - r[None, :]) ** 2 + (c[:, None] - c[None, :]) ** 2)
-    M = np.broadcast_to(C.astype(np.float64), (B, n, n)).copy()
-    return s / s.sum(1, keepdims=True), d / d.sum(1, keepdims=True), M
-
-
 def test_exact_route_is_unchanged_by_the_push_kernel(cuda, monkeypatch):
     """The batched route returns the same vertices, bases and objectives
     with the push on the kernel and on the host-driven loop."""
-    s, d, M = _dotmark(4, 32, seed=80)
+    s, d, M = dotmark(4, 32, seed=80)
 
     def route():
         n0 = _build.kernel_launch_counts()["tree_push"]
@@ -916,3 +904,57 @@ def test_exact_route_is_unchanged_by_the_push_kernel(cuda, monkeypatch):
         assert torch.equal(a, b)
     assert bool(kernel[4].all())
 
+
+
+@pytest.mark.parametrize("case", ["digits_784", "digits_784_all_cells",
+                                  "dotmark_1024"])
+def test_mega_kernel_counts_pivots_as_plain(cuda, case):
+    """16 x 784^2 digit pairs with the zero pixels kept and DOTmark-like
+    16 x 1024^2, from the route's warm start: the kernel's stats (pivots,
+    optimal, degenerate pivots) and final bases equal the plain
+    version's, instance for instance (the costs are integers, so every
+    potential and reduced cost is exact in float32 on both).  'digits_784'
+    is the state the route hands K2 (the cells at zero-mass nodes priced
+    out, under the pivot cap); 'digits_784_all_cells' prices every cell,
+    so most pivots are degenerate and some instances reach the cap."""
+    digits = case.startswith("digits")
+    s, d, M = (digit_grid(16, 28, 91, 4) if digits
+               else dotmark(16, 32, seed=92))
+    s, d, M = (torch.tensor(a, dtype=torch.float32, device=cuda)
+               for a in (s, d, M))
+    X0 = batched_tnet(s, d, M, reg=0.005, sinkhorn_iters=1000)[0]
+    live = (s > 0)[:, :, None] & (d > 0)[:, None, :]
+    Bm0 = boruvka_bipartite_mst(2 * (X0 > 1e-12).float() + live.float())
+    Mk = M if case != "digits_784" else torch.where(
+        live | Bm0, M, tsm.ZERO_MASS_COST)
+    st = mega_setup(X0, Bm0, Mk)
+    k = transport_simplex_mega_state(st, max_pivots=20000)
+    p = transport_simplex_mega_plain(st, max_pivots=20000)
+    print(case, "pivots", k[5].tolist(), "degenerate", k[7].tolist())
+    for i in (4, 5, 6, 7):
+        assert torch.equal(k[i], p[i]), i
+    if case == "digits_784_all_cells":
+        assert int(k[7].sum()) * 2 > int(k[5].sum())
+    else:
+        assert bool(k[6].all()) and int(k[5].max()) < 20000
+
+
+def test_exact_route_takes_zero_masses_on_card(cuda):
+    """The batched route on 16 x 784^2 digit pairs with the zero pixels
+    kept: every instance optimal under the pivot cap and certified in
+    float64, none refused by the basis check; the zero-mass nodes and
+    K2's counts in the trace."""
+    s, d, M = digit_grid(16, 28, 93, 4)
+    with trace.recording() as rec:
+        out = batched_tnet_exact_device(s, d, M, reg=0.005,
+                                        sinkhorn_iters=1000,
+                                        max_pivots=20000, device=cuda)
+    assert bool(out[4].all()) and int(out[3].max()) < 20000
+    certs = certify_ot_basis_batch(out[5].cpu().numpy(), s, d, M)
+    assert all(c.ok for c in certs), [c.reason for c in certs]
+    c = rec.summary()["scx.route"]["counters"]
+    print("route counters", c)
+    assert c["route.refused"] == 0
+    assert c["route.zero_nodes"] == int((s == 0).sum() + (d == 0).sum())
+    assert c["k2.pivots"] == int(out[3].sum())
+    assert 0 <= c["k2.degenerate"] <= c["k2.pivots"]
