@@ -22,8 +22,10 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
   main    the certified-exact OT crossover, batched_tnet_exact_device, at
           64 x 256^2 and at 16 x 784^2 (the benchmark's shapes and seeds,
           smart_crossover_tpu_torch/bench.py): every instance certified by
-          the host f64 certifier, both kernels launched, stage split,
-          certified instances/s; the push kernel launched once a call;
+          the f64 certifier on the card (the route's masks where they lie,
+          one certify launch and no other kernel, counter certify.device =
+          the batch), both kernels launched, stage split, certified
+          instances/s; the push kernel launched once a call;
   push    the push kernel against its plain version, the host-driven
           loop, on the inputs the main path gives it: the push of a
           batched_tnet_exact_device call on 16 DOTmark-like 32 x 32
@@ -31,6 +33,17 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           MNIST-like pairs (B = 1, 73-168 pixels an image): X and the
           steps equal bit for bit, one launch a call, the median ms of
           each;
+  certify the float64 certificate kernel on the route's optimal bases of
+          16 DOTmark-like pairs (16 x 1024^2) and 16 digit pairs on the
+          784-pixel grid (16 x 784^2), costs in float32 as the benchmark
+          hands them: the whole call's, the kernel's (CUDA events) and the
+          upload's ms (pinned staging against a pageable copy), the bound
+          (mask and cost bytes at the HBM rate), the SciPy path's ms, one
+          launch a call and the same certificates as the SciPy path
+          (verdicts, reasons, objectives, vertices, feasibility errors,
+          smallest flows and reduced costs, at the CPU tests' tolerances),
+          also under costs lowered off the trees, where some verdicts must
+          fail; max_abs_err is the largest gap between the two;
   bench   `python -m smart_crossover_tpu_torch bench` in a subprocess at
           full size (both rows): rc 0, every instance certified and
           optimal on the card, K1, K2 and the push kernel launched once
@@ -514,6 +527,7 @@ def phase_main(scx, B, S, D, seed, reps):
 
     from smart_crossover_tpu_torch import bench
     from smart_crossover_tpu_torch.ops import transport_simplex_mega as tsm
+    from smart_crossover_tpu_torch.utils import trace
 
     s64, d64, M64 = bench.make_batch(B, S, D, seed=seed)
     s, d, M = to_cuda(s64, d64, M64)
@@ -532,9 +546,15 @@ def phase_main(scx, B, S, D, seed, reps):
     k2_cluster = tsm.LAST_LAUNCH["cluster_size"]
     _, dev_ms, all_ms = sync_time(go, reps)
     X, obj, push, piv, opt, Bm = out
-    t0 = time.perf_counter()
-    certs = scx.certify_ot_basis_batch(Bm.cpu().numpy(), s64, d64, M64)
-    cert_s = time.perf_counter() - t0
+    # the route's masks where they lie, the true float64 costs from the host
+    scx.reset_kernel_launch_counts()
+    with trace.recording() as st:
+        t0 = time.perf_counter()
+        certs = scx.certify_ot_basis_batch(Bm, s64, d64, M64)
+        cert_s = time.perf_counter() - t0
+    cert_counts = scx.kernel_launch_counts()
+    on_card = st.summary()["scx.certify"]["counters"].get("certify.device")
+    counts["certify"] = cert_counts["certify"]
     n_cert = sum(c.ok for c in certs)
     cobj = np.array([c.obj_val for c in certs])
     obj_rel = float(np.max(np.abs(obj.double().cpu().numpy() - cobj)
@@ -554,13 +574,17 @@ def phase_main(scx, B, S, D, seed, reps):
            "device_stage_ms_median": dev_ms, "device_stage_ms": all_ms,
            "certify_s": cert_s,
            "certified_instances_per_s": B / (dev_ms / 1e3 + cert_s),
-           "launches": counts, "k2_cluster_size": k2_cluster,
+           "launches": counts, "certify_launches": cert_counts,
+           "certified_on_card": on_card, "k2_cluster_size": k2_cluster,
            "stage_ms": split,
            "stage_split_push_max": int(split_push.max().item())}
     emit(rec)
     require(X.shape == (B, S, D) and bool(torch.isfinite(X).all())
             and bool(torch.isfinite(obj).all()), "main path output malformed")
     require(n_cert == B, f"only {n_cert}/{B} certified")
+    require(cert_counts["certify"] == 1 and sum(cert_counts.values()) == 1
+            and on_card == B,
+            f"certification: launches {cert_counts}, {on_card} on the card")
     require(bool(opt.all()), "device did not reach optimality everywhere")
     require(obj_rel <= 1e-4, f"device objective off certificate: {obj_rel}")
     require(counts["sinkhorn_fused"] > 0
@@ -768,6 +792,161 @@ def phase_push(scx):
              "library_ms": None, "steps_max": big["steps_max"]}
     for key in ("ms", "plain_ms", "bound_ms", "shape", "steps_max"):
         entry[f"{key}_mnist"] = [r[key] for r in mnist]
+    return entry
+
+
+# --------------------------------------------------------------- certify
+
+def certs_agree(certs, plain):
+    """Whether two certifiers' certificates of one batch agree as the CPU
+    tests hold them (tests/test_torch_certify.py::_agree: the same verdict
+    and reason prefix; objective to 1e-12 relative, vertex to 1e-12
+    relative and 1e-15 absolute, feasibility error, smallest flow and
+    smallest reduced cost to 1e-9 relative and 1e-12 absolute), and the
+    largest absolute gap between any of those numbers."""
+    agree, gap = len(certs) == len(plain), 0.0
+    for a, b in zip(certs, plain):
+        agree &= (a.ok == b.ok
+                  and a.reason.split("=")[0] == b.reason.split("=")[0])
+        if not np.isfinite(b.obj_val):
+            agree &= bool(np.isnan(a.obj_val))
+            continue
+        agree &= bool(np.isclose(a.obj_val, b.obj_val, rtol=1e-12, atol=0)
+                      and np.allclose(a.x, b.x, rtol=1e-12, atol=1e-15))
+        pairs = [(a.obj_val, b.obj_val), (a.x, b.x)]
+        for key in ("max_feas_err", "min_flow", "min_rcost"):
+            u, v = getattr(a, key), getattr(b, key)
+            agree &= bool(np.isclose(u, v, rtol=1e-9, atol=1e-12))
+            pairs.append((u, v))
+        gap = max(gap, *(float(np.max(np.abs(np.subtract(u, v))))
+                         for u, v in pairs))
+    return agree, gap
+
+
+def lowered_off_tree(Bm, M, seed):
+    """M with 8 random cells off each odd instance's tree made cheaper by
+    up to four times the largest cost: those cells' reduced costs, taken
+    from the tree's duals, fall below the tolerance, and the instances are
+    rejected, while the even ones keep their optimal costs."""
+    rng = np.random.default_rng(seed)
+    M = M.copy()
+    lower = 4.0 * float(np.abs(M).max())
+    for b in range(1, len(M), 2):
+        off = rng.choice(np.flatnonzero(~Bm[b].ravel()), 8, replace=False)
+        cells = np.unravel_index(off, Bm[b].shape)
+        M[b][cells] -= (lower * rng.uniform(0.25, 1.0, 8)).astype(M.dtype)
+    return M
+
+
+def certify_at(scx, label, Bm, s, d, M, reps):
+    """One batch of bases through the certificate's card path and its
+    SciPy path: the same certificates (``certs_agree``) on the route's
+    optimal bases and on those bases under costs lowered off the tree
+    (``lowered_off_tree``: the reduced-cost verdicts must differ from
+    all-ok), one launch a call, the ms of each part."""
+    import torch
+
+    from smart_crossover_tpu_torch import _build
+    from smart_crossover_tpu_torch.ops import certify as ck
+    from smart_crossover_tpu_torch.utils import trace
+
+    dev = torch.device("cuda")
+    cert = scx.certify_ot_basis_batch
+    cert(Bm, s, d, M)                             # warm-up: staging buffer
+    n0 = _build.LAUNCHES["certify"]
+    certs, call_ms, all_ms = sync_time(lambda: cert(Bm, s, d, M), reps)
+    launches = (_build.LAUNCHES["certify"] - n0) / reps
+    with trace.recording() as st:
+        for _ in range(reps):
+            cert(Bm, s, d, M)
+    kernel_ms = st.summary()["scx.certify_kernel"]["event_s"] / reps * 1e3
+    host = [Bm.view(np.uint8), M, s, d]
+    on_card, upload_ms, _ = sync_time(lambda: ck._upload(host, dev), reps)
+    _, pageable_ms, _ = sync_time(
+        lambda: [torch.from_numpy(a).to(dev) for a in host], reps)
+    mask_t, M_t, s_t, d_t = on_card
+    _, launch_ms, _ = sync_time(
+        lambda: ck.certify_batch_cuda(mask_t.view(torch.bool), s_t, d_t, M_t,
+                                      dev), reps)
+    t0 = time.perf_counter()
+    plain = cert(Bm, s, d, M, device="cpu")
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    agree, gap = certs_agree(certs, plain)
+    M_low = lowered_off_tree(Bm, M, 22)
+    low, low_plain = (cert(Bm, s, d, M_low, device=where)
+                      for where in (dev, "cpu"))
+    agree_low, gap_low = certs_agree(low, low_plain)
+    b_ms, b_by = bound(0.0, Bm.nbytes + M.nbytes)
+    rec = {"input": label, "shape": list(M.shape), "cost_dtype": str(M.dtype),
+           "certified": int(sum(c.ok for c in certs)),
+           "call_ms": call_ms, "call_ms_all": all_ms, "kernel_ms": kernel_ms,
+           "launch_and_fetch_ms": launch_ms, "upload_ms": upload_ms,
+           "upload_pageable_ms": pageable_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "plain_ms": plain_ms,
+           "launches_per_call": launches, "agree": agree,
+           "max_abs_err": gap,
+           "lowered_off_tree": {
+               "certified": [c.ok for c in low],
+               "certified_plain": [c.ok for c in low_plain],
+               "min_rcost": [c.min_rcost for c in low],
+               "agree": agree_low, "max_abs_err": gap_low}}
+    require(agree, f"certify {label}: the kernel and the SciPy path differ")
+    require(rec["certified"] == len(certs),
+            f"certify {label}: {rec['certified']}/{len(certs)} certified")
+    require(agree_low, f"certify {label}, costs lowered off the tree: the "
+                       f"kernel and the SciPy path differ")
+    require(0 < sum(c.ok for c in low) < len(low),
+            f"certify {label}, costs lowered off the tree: the verdicts do "
+            f"not mix ({sum(c.ok for c in low)}/{len(low)} certified)")
+    require(launches == 1, f"certify {label}: {launches} launches a call")
+    return rec
+
+
+def phase_certify(scx):
+    """The certificate kernel on the route's optimal bases at the two batch
+    cells' shapes.  Returns the kernel's summary entry (the DOTmark-like
+    batch; the grid's beside it)."""
+    from smart_crossover_tpu_torch.data.ot_gen import (
+        grid_l1_cost,
+        synthetic_digits,
+    )
+
+    rng = np.random.default_rng(22)
+    side = 32
+    s = rng.uniform(0.0, 1.0, (16, side * side))
+    d = rng.uniform(0.0, 1.0, (16, side * side))
+    r, c = np.divmod(np.arange(side * side), side)
+    C = ((r[:, None] - r[None, :]) ** 2 + (c[:, None] - c[None, :]) ** 2)
+    dot = (s / s.sum(1, keepdims=True), d / d.sum(1, keepdims=True),
+           np.broadcast_to(C.astype(np.float32), (16,) + C.shape).copy())
+    imgs = synthetic_digits(32, 28, 22, 4).reshape(32, -1)
+    imgs = imgs / imgs.sum(1, keepdims=True)
+    idx = np.arange(784)
+    G = grid_l1_cost((28, 28), idx, (28, 28), idx).astype(np.float32)
+    grid = (imgs[0::2].copy(), imgs[1::2].copy(),
+            np.broadcast_to(G, (16,) + G.shape).copy())
+    rows = []
+    for label, (s, d, M) in (("dotmark_16x1024x1024", dot),
+                             ("digits_grid_16x784x784", grid)):
+        out = scx.batched_tnet_exact_device(
+            s, d, M, reg=REG, sinkhorn_iters=SINKHORN_ITERS,
+            max_pivots=MAX_PIVOTS)
+        require(bool(out[4].all()), f"certify {label}: route not optimal")
+        rows.append(certify_at(scx, label, out[5].cpu().numpy(), s, d, M, 10))
+    emit({"phase": "certify", "inputs": rows})
+    big, grid_row = rows
+    entry = {"name": "certify", "route": "cuda", "source": "csrc/certify.cu",
+             "replaces": "none: the JAX package certifies on the host in "
+                         "NumPy/SciPy",
+             "max_abs_err": max(max(r["max_abs_err"],
+                                    r["lowered_off_tree"]["max_abs_err"])
+                                for r in rows),
+             "ms": big["kernel_ms"],
+             "call_ms": big["call_ms"], "upload_ms": big["upload_ms"],
+             "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+             "bound_by": big["bound_by"], "library_ms": None}
+    for key in ("ms", "call_ms", "upload_ms", "plain_ms", "bound_ms"):
+        entry[f"{key}_784"] = grid_row["kernel_ms" if key == "ms" else key]
     return entry
 
 
@@ -2723,6 +2902,8 @@ def main() -> int:
     counts7, cobj7, ips7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
     push = phase_push(scx)
     push.update(launches=counts["tree_push"], launches_784=counts7["tree_push"])
+    certify = phase_certify(scx)
+    certify.update(launches=counts["certify"], launches_784=counts7["certify"])
     named = phase_bench(torch, {"ot_64x256x256": ips,
                                 "ot_16x784x784": ips7})
     serve_row = named["serve_16x128x128x16"]
@@ -2817,7 +2998,7 @@ def main() -> int:
            or m.split(".")[0] == "smart_crossover_tpu"]
     require(not bad, f"JAX modules were imported: {bad[:5]}")
     print(smi, flush=True)
-    emit({"kernels": kernels + [push]})
+    emit({"kernels": kernels + [push, certify]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

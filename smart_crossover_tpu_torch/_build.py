@@ -27,7 +27,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 SOURCES = ("sinkhorn.cu", "transport_simplex_mega.cu", "pdhg_cluster.cu",
-           "tree_push.cu")
+           "tree_push.cu", "certify.cu")
 
 
 def _writable(path: Path) -> bool:
@@ -58,7 +58,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"sinkhorn_fused": 0, "transport_simplex_mega": 0,
             "pdhg_chunk": 0, "halpern_chunk": 0, "pdhg_batched": 0,
-            "tree_push": 0}
+            "tree_push": 0, "certify": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -101,6 +101,12 @@ _SIGNATURES = {
     # S, f64 -> bytes of global scratch a block needs (0: shared memory
     # holds its cache; or -error)
     "scx_tree_push_scratch_bytes": [_I] * 2,
+    # mask, M, s, d, scratch, B, S, D, f64, status, n_arcs, nums, arcs,
+    # flows, stream
+    "scx_certify": [_P] * 5 + [_I] * 4 + [_P] * 6,
+    # S, D, f64 -> bytes of global scratch a block needs (0: shared memory
+    # holds its arrays; or -error)
+    "scx_certify_scratch_bytes": [_I] * 3,
 }
 
 _lib = None

@@ -45,7 +45,7 @@ CPU_SHAPE = (4, 16, 16, 0, 3, 2)
 
 def run_row(cell: str, B: int, S: int, D: int, seed: int, n_dispatch: int,
             n_base: int, dev: torch.device) -> dict:
-    """The serving row: warm-up, the timed dispatches, host certification,
+    """The serving row: warm-up, the timed dispatches, certification,
     the baseline and the staged pass.  Returns its record."""
     from smart_crossover_tpu_torch._build import (
         kernel_launch_counts,
@@ -78,15 +78,17 @@ def run_row(cell: str, B: int, S: int, D: int, seed: int, n_dispatch: int,
     for s, d, M in batches:
         t1 = time.perf_counter()
         out = dispatch(s, d, M)
-        bases.append(out[5].cpu().numpy())      # the server's host fetch
+        bench._sync(dev)                        # the dispatch's results
+        bases.append(out[5])                    # certified where they lie
         lat.append(time.perf_counter() - t1)
         on_device.append(out[1:5])              # read after the clock
     device_wall = time.perf_counter() - t0
     launches = kernel_launch_counts()
 
-    # host certification of every basis, counted in the headline
+    # float64 certification of every basis on the row's device, of the
+    # masks where they lie, counted in the headline
     t0 = time.perf_counter()
-    certs = [certify_ot_basis_batch(Bm, s, d, M)
+    certs = [certify_ot_basis_batch(Bm, s, d, M, device=dev)
              for (s, d, M), Bm in zip(batches, bases)]
     certify_wall = time.perf_counter() - t0
     certs = [c for batch in certs for c in batch]

@@ -1,14 +1,16 @@
 """Precision / device policy for the PyTorch port.
 
 The numerics split of the JAX package (``smart_crossover_tpu/config.py``)
-carries over unchanged:
+carries over, with the certificate of a batch's bases on the card:
 
 * approximate, massively-parallel work (Sinkhorn, flow ranking, Borůvka,
   tree push, the device transportation simplex) runs in the *device*
   dtype — float32 on a CUDA card; on the CPU the input's own dtype, so the
   tests can hold the port to the JAX package in float64;
-* exactness-critical work (optimality certificates) runs on the host in
-  float64 with numpy / scipy.
+* exactness-critical work (optimality certificates) runs in float64: on
+  the host with numpy / scipy, except the batched OT certificate, which a
+  CUDA card runs natively in float64 (``csrc/certify.cu``), independent of
+  the route it certifies.
 """
 from __future__ import annotations
 

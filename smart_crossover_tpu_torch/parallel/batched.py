@@ -269,7 +269,7 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
                        engine: str = "auto",
                        max_pivots: int | None = None, *, device=None,
                        stats: dict | None = None):
-    """Batched crossover to EXACT optimal vertices, certified on the host.
+    """Batched crossover to EXACT optimal vertices, certified in float64.
 
     ``engine='host'``: the device runs the batched TNET pipeline (the fused
     Sinkhorn kernel); the native network simplex then cleans each instance
@@ -278,8 +278,9 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
 
     ``engine='mega'``, or a tensor engine ('parent', 'device' = 'parent',
     'anc', 'packed', 'mask'): ``batched_tnet_exact_device`` with that
-    pivot engine; every returned basis is certified in f64 on the
-    host (``certify_ot_basis_batch``), and each instance that fails or hit
+    pivot engine; every returned basis is certified in f64
+    (``certify_ot_basis_batch``, on ``device``: the card's kernel, or SciPy
+    on the CPU), and each instance that fails or hit
     the pivot cap (``max_pivots``, default max(5000, 8 (S + D))) is
     repaired by the native network simplex warm-started from its device
     basis, whose pivots are added to its count.
@@ -325,17 +326,18 @@ def batched_tnet_exact(s, d, M, reg: float = 0.005,
                 max_pivots=max_pivots, engine=engine, device=device)
             piv_n = piv.cpu().numpy().astype(np.int64)
             opt_n = opt.cpu().numpy().astype(bool)
-            Bm_n = Bm.cpu().numpy()
         with trace.span("scx.exact.host", stats=stats, key="host_s"):
-            certs = certify_ot_basis_batch(Bm_n, s64, d64, M64)
+            # the masks where they lie; the host reads them only to repair
+            certs = certify_ot_basis_batch(Bm, s64, d64, M64, device=device)
             Xn = np.stack([c.x for c in certs])
             obj_n = np.array([c.obj_val for c in certs])
             ok = opt_n & np.array([c.ok for c in certs])
             # certification failures / pivot-capped instances: warm-start
             # the native core from the device basis
             bad = np.flatnonzero(~ok)
-            for i in bad:
-                vbasis = np.where(Bm_n[i].ravel(), 0, -1).astype(np.int32)
+            Bm_n = Bm[torch.from_numpy(bad).to(Bm.device)].cpu().numpy()
+            for i, mask in zip(bad, Bm_n):
+                vbasis = np.where(mask.ravel(), 0, -1).astype(np.int32)
                 res = _solve_ot(s64[i], d64[i], M64[i], vbasis)
                 Xn[i] = res.x.reshape(S, D)
                 obj_n[i] = res.obj_val

@@ -36,7 +36,7 @@ def test_library_name_follows_each_source(src_copy, name):
 
 def test_every_kernel_has_a_source_signature_and_counter():
     assert _build.SOURCES == ("sinkhorn.cu", "transport_simplex_mega.cu",
-                              "pdhg_cluster.cu", "tree_push.cu")
+                              "pdhg_cluster.cu", "tree_push.cu", "certify.cu")
     for name in _build.LAUNCHES:
         assert f"scx_{name}" in _build._SIGNATURES
     for src in _build.SOURCES:
@@ -52,6 +52,17 @@ def test_tree_push_has_its_source_signature_and_counter():
         assert name in _build._SIGNATURES
     assert len(_build._SIGNATURES["scx_tree_push"]) == 10
     assert "tree_push" in _build.LAUNCHES
+
+
+def test_certify_has_its_source_signature_and_counter():
+    """The certificate kernel's C entry points, as the wrapper binds them,
+    appear in its source, and its launches have a counter."""
+    src = (_build.CSRC / "certify.cu").read_text()
+    for name in ("scx_certify", "scx_certify_scratch_bytes"):
+        assert f'extern "C" int {name}(' in src
+        assert name in _build._SIGNATURES
+    assert len(_build._SIGNATURES["scx_certify"]) == 15
+    assert "certify" in _build.LAUNCHES
 
 
 def test_existing_library_is_reused(src_copy, monkeypatch):
@@ -98,4 +109,4 @@ def test_launch_counts_reset():
     reset_kernel_launch_counts()
     assert kernel_launch_counts() == {
         "sinkhorn_fused": 0, "transport_simplex_mega": 0, "pdhg_chunk": 0,
-        "halpern_chunk": 0, "pdhg_batched": 0, "tree_push": 0}
+        "halpern_chunk": 0, "pdhg_batched": 0, "tree_push": 0, "certify": 0}

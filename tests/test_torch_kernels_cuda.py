@@ -5,6 +5,8 @@ check runs in the fixture, not at import).  On a card:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -30,8 +32,10 @@ from smart_crossover_tpu_torch.parallel.batched import (
     batched_tnet_exact_device,
 )
 from smart_crossover_tpu_torch.network_methods import tree_bi
+from smart_crossover_tpu_torch.ops import certify as certify_kernel
 from smart_crossover_tpu_torch.ops.tree import push_to_bfs, push_to_bfs_plain
 from smart_crossover_tpu_torch.utils import trace
+from tests import certify_cases as cc
 from tests import push_cases
 from tests.ot_grids import digit_grid, dotmark
 
@@ -958,3 +962,127 @@ def test_exact_route_takes_zero_masses_on_card(cuda):
     assert c["route.zero_nodes"] == int((s == 0).sum() + (d == 0).sum())
     assert c["k2.pivots"] == int(out[3].sum())
     assert 0 <= c["k2.degenerate"] <= c["k2.pivots"]
+
+
+def _agree_scipy(a, b):
+    """The kernel's certificate ``a`` against the SciPy certifier's ``b``,
+    at ``tests/test_torch_certify.py::_agree``'s tolerances; both name a
+    failed tree solve so, each in its own words after the colon."""
+    assert a.ok == b.ok
+    key = lambda c: c.reason.split(":")[0].split("=")[0]  # noqa: E731
+    assert key(a) == key(b), (a.reason, b.reason)
+    if np.isfinite(b.obj_val):
+        np.testing.assert_allclose(a.obj_val, b.obj_val, rtol=1e-12)
+        np.testing.assert_allclose(a.x, b.x, rtol=1e-12, atol=1e-15)
+        for k in ("max_feas_err", "min_flow", "min_rcost"):
+            np.testing.assert_allclose(getattr(a, k), getattr(b, k),
+                                       rtol=1e-9, atol=1e-12)
+    else:
+        assert np.isnan(a.obj_val) and not a.x.any()
+
+
+@functools.lru_cache(maxsize=None)
+def _route_bases(kind):
+    """The route's optimal bases: 16 DOTmark-like pairs at 1024^2, or 16
+    digit pairs on the 784-pixel grid with their blank pixels kept (about
+    80% zero masses, star-shaped trees)."""
+    s, d, M = (dotmark(16, 32, seed=95) if kind == "dotmark"
+               else digit_grid(16, 28, 96, 4))
+    out = batched_tnet_exact_device(s, d, M, reg=0.005, sinkhorn_iters=1000,
+                                    max_pivots=20000, device="cuda")
+    assert bool(out[4].all())
+    return out[5].cpu().numpy(), s, d, M
+
+
+def _counts(S, D, seed):
+    return (cc.wrong_counts(S, D, seed), *cc.masses(2, S, D, seed + 1))
+
+
+def _cycle(S, D, seed):
+    return (cc.cycles(S, D, seed), *cc.masses(1, S, D, seed + 1))
+
+
+# (bases, whether every instance certifies); "scratch" cases do not fit a
+# block's shared memory
+CERTIFY_CASES = {
+    "route_dotmark_16x1024x1024": (lambda: _route_bases("dotmark"), True),
+    "route_digits_16x784x784": (lambda: _route_bases("digits"), True),
+    "planted_3x64x100": (lambda: cc.planted(3, 64, 100, seed=97), True),
+    "random_trees_4x64x100": (lambda: cc.random_trees(4, 64, 100, seed=98),
+                              False),
+    "wrong_counts_2x37x53": (lambda: _counts(37, 53, seed=99), False),
+    "cycle_1x6x7": (lambda: _cycle(6, 7, seed=100), False),
+    "cycle_1x30x20": (lambda: _cycle(30, 20, seed=101), False),
+    "scratch_planted_2x2200x2200": (lambda: cc.planted(2, 2200, 2200,
+                                                       seed=102), True),
+    "scratch_random_1x3000x1500": (
+        lambda: cc.random_trees(1, 3000, 1500, seed=103), False),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", list(CERTIFY_CASES))
+def test_certify_kernel_matches_scipy(cuda, case, dtype):
+    """One launch certifies the batch as the SciPy certifier does each
+    instance: the same verdict and reason, the vertex, objective and
+    diagnostics within the CPU parity test's tolerances; M read in float32
+    or float64 as given."""
+    make, all_ok = CERTIFY_CASES[case]
+    Bm, s, d, M = make()
+    M = M.astype(dtype)
+    n0 = _build.kernel_launch_counts()["certify"]
+    got = certify_ot_basis_batch(Bm, s, d, M)
+    assert _build.kernel_launch_counts()["certify"] == n0 + 1
+    want = certify_ot_basis_batch(Bm, s, d, M, device="cpu")
+    for a, b in zip(got, want):
+        _agree_scipy(a, b)
+    assert [c.ok for c in got] == [all_ok] * len(got)
+    per_block = _build.library().scx_certify_scratch_bytes(
+        M.shape[1], M.shape[2], int(dtype == np.float64))
+    assert (per_block > 0) == case.startswith("scratch")
+
+
+def test_certify_kernel_repeats_bit_for_bit_and_counts(cuda):
+    """Repeat launches give the same bits; one launch a batch, its span
+    timed by CUDA events and ``certify.device`` = the batch size."""
+    Bm, s, d, M = cc.planted(5, 300, 200, seed=104)
+    with trace.recording() as st:
+        certify_ot_basis_batch(Bm, s, d, M)
+    sm = st.summary()
+    assert sm["scx.certify_kernel"]["calls"] == 1
+    assert sm["scx.certify_kernel"]["event_s"] > 0
+    assert sm["scx.certify"]["counters"] == {"certify.device": 5,
+                                             "certify.rejected": 0}
+    a = certify_kernel.certify_batch_cuda(Bm, s, d, M, cuda)
+    b = certify_kernel.certify_batch_cuda(Bm, s, d, M, cuda)
+    for x, y in zip(a, b):
+        assert x.tobytes() == y.tobytes()
+
+
+def test_certify_takes_card_tensors_where_they_lie(cuda):
+    """Masks and costs already on the card are read there, with the same
+    certificates as from host arrays; ``device='cpu'`` launches nothing."""
+    Bm, s, d, M = _route_bases("digits")
+    host = certify_ot_basis_batch(Bm, s, d, M)
+    n0 = _build.kernel_launch_counts()["certify"]
+    card = certify_ot_basis_batch(torch.from_numpy(Bm).to(cuda), s, d,
+                                  torch.from_numpy(M).to(cuda))
+    assert _build.kernel_launch_counts()["certify"] == n0 + 1
+    for a, b in zip(card, host):
+        assert (a.ok, a.reason, a.obj_val) == (b.ok, b.reason, b.obj_val)
+        assert np.array_equal(a.x, b.x)
+    certify_ot_basis_batch(Bm[:2], s[:2], d[:2], M[:2], device="cpu")
+    assert _build.kernel_launch_counts()["certify"] == n0 + 1
+
+
+@pytest.mark.parametrize("shape", [(34, 26), (200, 300)])
+def test_certify_kernel_refuses_scattered_arcs(cuda, shape):
+    """S + D - 1 random cells, nodes left without an arc: a failed tree
+    solve, refused, the vertex zeros.  (No SciPy oracle here: its sparse
+    LU crashed the process on such masks.)"""
+    S, D = shape
+    Bm = cc.scattered(S, D, seed=105)
+    s, d, M = cc.masses(1, S, D, seed=106)
+    (c,) = certify_ot_basis_batch(Bm, s, d, M)
+    assert not c.ok and c.reason.startswith("tree solve failed")
+    assert np.isnan(c.obj_val) and not c.x.any()
