@@ -24,8 +24,8 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           smart_crossover_tpu_torch/bench.py): every instance certified by
           the f64 certifier on the card (the route's masks where they lie,
           one certify launch and no other kernel, counter certify.device =
-          the batch), both kernels launched, stage split, certified
-          instances/s; the push kernel launched once a call;
+          the batch), both kernels launched, certified instances/s; the
+          push kernel launched once a call;
   push    the push kernel against its plain version, the host-driven
           loop, on the inputs the main path gives it: the push of a
           batched_tnet_exact_device call on 16 DOTmark-like 32 x 32
@@ -559,8 +559,6 @@ def phase_main(scx, B, S, D, seed, reps):
     cobj = np.array([c.obj_val for c in certs])
     obj_rel = float(np.max(np.abs(obj.double().cpu().numpy() - cobj)
                            / np.abs(cobj)))
-    split, split_push, _ = bench.stage_split(s, d, M, REG, SINKHORN_ITERS,
-                                             MAX_PIVOTS)
     rec = {"phase": f"main_{B}x{S}x{D}", "seed": seed,
            "n_certified": int(n_cert), "batch": B,
            "all_optimal_device": bool(opt.all()),
@@ -575,9 +573,7 @@ def phase_main(scx, B, S, D, seed, reps):
            "certify_s": cert_s,
            "certified_instances_per_s": B / (dev_ms / 1e3 + cert_s),
            "launches": counts, "certify_launches": cert_counts,
-           "certified_on_card": on_card, "k2_cluster_size": k2_cluster,
-           "stage_ms": split,
-           "stage_split_push_max": int(split_push.max().item())}
+           "certified_on_card": on_card, "k2_cluster_size": k2_cluster}
     emit(rec)
     require(X.shape == (B, S, D) and bool(torch.isfinite(X).all())
             and bool(torch.isfinite(obj).all()), "main path output malformed")

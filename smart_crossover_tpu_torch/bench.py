@@ -25,12 +25,6 @@ fetch, then timed calls each ending in a device sync):
   reference's 28 x 28 MNIST scale, 5 timed calls, 1 baseline instance;
   skipped under ``SCX_BENCH_SKIP_784=1``.
 
-After its timed calls each row runs one staged pass (``stage_split``):
-one more call of the route inside ``trace.recording()``, whose own spans
-(``utils/trace.py``) give the per-stage milliseconds; on the card a
-second staged pass under ``torch.profiler`` gives the device's busy time
-and idle share.  The end-to-end numbers come from the timed calls only.
-
 The baseline is the reference's crossover stage done the reference's way
 on the host (scipy MST, spsolve, a sequential push; reference tree_BI.py),
 one instance at a time.  It stops at a feasible vertex, so vs_baseline
@@ -83,11 +77,6 @@ OTHER_ROWS = {"goto17_cnet_mcf": "bench_goto17",
               "goto17_irregular_cnet_mcf": "bench_goto17",
               "serve_16x128x128x16": "bench_serving",
               "ipm_stair_10000x36975": "bench_ipm_stair"}
-
-# the staged pass, in the pipeline's order
-STAGES = ("upload", "sinkhorn_kernel", "round_indicators", "boruvka_flow",
-          "tree_solve", "push", "boruvka_support", "simplex_setup",
-          "simplex_kernel", "rebuild")
 
 
 def make_batch(B, S, D, seed=0):
@@ -186,93 +175,10 @@ def synced(fn, dev: torch.device):
     return out, time.perf_counter() - t0
 
 
-def stage_split(s, d, M, reg: float = REG,
-                sinkhorn_iters: int = SINKHORN_ITERS,
-                max_pivots: int = MAX_PIVOTS, *, device=None):
-    """One call of ``batched_tnet_exact_device`` ('mega' engine) inside
-    ``trace.recording()``: each stage's milliseconds (``STAGES``) from the
-    route's own spans, device time between their CUDA events on a card,
-    host time on the CPU.  s, d, M as that function takes them.  Returns
-    (ms per stage, push iterations (B,), pivots (B,))."""
-    from smart_crossover_tpu_torch.parallel.batched import (
-        batched_tnet_exact_device,
-    )
-    from smart_crossover_tpu_torch.utils import trace
-
-    with trace.recording() as rec:
-        out = batched_tnet_exact_device(s, d, M, reg=reg,
-                                        sinkhorn_iters=sinkhorn_iters,
-                                        max_pivots=max_pivots,
-                                        engine="mega", device=device)
-    spans = rec.summary()
-    ms = {}
-    for name in STAGES:
-        sp = spans[trace.PREFIX + name]
-        sec = sp["event_s"] if sp["event_s"] is not None else sp["host_s"]
-        ms[name] = sec * 1e3
-    return ms, out[2], out[3]
-
-
-def layer_ms(stage_ms: dict, device_stage_ms: float, certify_ms: float):
-    """The per-layer metrics of a row, from its staged pass and its timed
-    calls."""
-    return {"device_stage_ms": device_stage_ms, "certify_ms": certify_ms,
-            "sinkhorn_kernel_ms": stage_ms["sinkhorn_kernel"],
-            "simplex_kernel_ms": stage_ms["simplex_kernel"],
-            "push_ms": stage_ms["push"],
-            "tree_solve_ms": stage_ms["tree_solve"],
-            "boruvka_ms": stage_ms["boruvka_flow"]
-            + stage_ms["boruvka_support"],
-            "simplex_setup_ms": stage_ms["simplex_setup"]}
-
-
-def device_busy(fn, dev: torch.device) -> dict:
-    """fn() once under ``torch.profiler`` on the card: the device's busy
-    time (the union of its kernels' and copies' spans), the pass's wall
-    time, the idle share and the eight kernels that took longest in all.
-    No device activity recorded reads "not measured".  The profiler's raw
-    (kineto) events are read, not ``prof.events()``, whose event tree
-    takes minutes to build over the 10^5 launches of a long pass."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from smart_crossover_tpu_torch.utils import trace
-
-    _sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        _sync(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device activity, less the trace spans' own device-side copies
-    acts = [(e.name(), e.start_ns(), e.duration_ns())
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA
-            and not e.name().startswith(trace.PREFIX)]
-    busy_ns, end = 0, float("-inf")
-    for lo, dur in sorted((lo, dur) for _, lo, dur in acts):
-        if lo + dur > end:
-            busy_ns += lo + dur - max(lo, end)
-            end = lo + dur
-    if busy_ns == 0:
-        return {"device_busy_ms": "not measured"}
-    by_name = {}
-    for name, _, dur in acts:
-        ms, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (ms + dur / 1e6, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"device_busy_ms": busy_ns / 1e6, "profiled_wall_ms": wall_ms,
-            "device_idle_share": 1.0 - busy_ns / 1e6 / wall_ms,
-            "device_events": len(acts),
-            "top_device_ms": [{"name": n[:80], "ms": ms, "count": c}
-                              for n, (ms, c) in top]}
-
-
 def run_row(cell: str, B: int, S: int, D: int, seed: int, reps: int,
             n_base: int, dev: torch.device) -> dict:
-    """One row: warm-up, timed calls, certification, the CPU
-    reference baseline and the staged pass.  Returns its record."""
+    """One row: warm-up, timed calls, certification and the CPU
+    reference baseline.  Returns its record."""
     from smart_crossover_tpu_torch._build import (
         kernel_launch_counts,
         reset_kernel_launch_counts,
@@ -328,7 +234,6 @@ def run_row(cell: str, B: int, S: int, D: int, seed: int, reps: int,
                                sinkhorn_iters=SINKHORN_ITERS)
     cpu_dt = (time.perf_counter() - t0) / n_base
 
-    stage_ms, _, _ = stage_split(s, d, M, device=dev)
     pivots, pushes = piv.cpu().numpy(), push.cpu().numpy()
     all_opt = bool(opt.all())
     row = {
@@ -356,21 +261,13 @@ def run_row(cell: str, B: int, S: int, D: int, seed: int, reps: int,
         "max_push_iters": int(pushes.max()),
         "launches": launches,
         "launches_per_call": {k: v / reps for k, v in launches.items()},
-        "stage_ms": stage_ms,
-        "layers": layer_ms(stage_ms, dt * 1e3, cert_dt * 1e3),
     }
     row["correct"] = (row["all_certified"] and all_opt
                       and obj_rel <= OBJ_RTOL)
     if dev.type == "cuda":
         row["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(
             dev)
-        row["staged_pass_profile"] = staged_pass_profile(s, d, M, dev)
     return row
-
-
-def staged_pass_profile(s, d, M, dev: torch.device) -> dict:
-    """A second staged pass under ``torch.profiler`` (``device_busy``)."""
-    return device_busy(lambda: stage_split(s, d, M, device=dev), dev)
 
 
 def card(dev: torch.device) -> dict:
@@ -464,12 +361,6 @@ def run(args) -> int:
     if args.cell in OTHER_ROWS:
         return run_other(args, dev, setup)
     rows = [run_row(*r, dev=dev) for r in rows_to_run(args)]
-    for r in rows:          # the per-stage records, before the result
-        print(json.dumps({"staged_pass": r["cell"], "stage_ms": r["stage_ms"],
-                          "median_pivots": r["median_pivots"],
-                          "median_push_iters": r["median_push_iters"],
-                          "launches_per_call": r["launches_per_call"]}),
-              flush=True)
     head = rows[0]
     detail = {"backend": dev.type, **card(dev), **setup, **head}
     if len(rows) > 1:

@@ -22,8 +22,7 @@ script does:
    (the baseline);
 3. the first-order warm start, ``pdhg_mcf_device`` (Halpern, tol 1e-4,
    5000 iterations, float32) on the card, once, then again synced (the
-   steady time), then once more under ``torch.profiler`` for the device's
-   busy time and idle share;
+   steady time);
 4. CNET_MCF, ``network_crossover(method="cnet_mcf")``, from the warm x
    (the ranking on the card in float32, column generation and the native
    network simplex on the host in f64).
@@ -170,10 +169,6 @@ def run_row(cell: str, B: int, width: int, height: int, seed: int,
     if dev.type == "cuda":
         row["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(
             dev)
-        t0 = time.perf_counter()
-        prof = bench.device_busy(warm, dev)
-        prof["seconds"] = time.perf_counter() - t0
-        row["warm_steady_profile"] = prof
     return row
 
 

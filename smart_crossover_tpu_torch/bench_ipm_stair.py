@@ -15,8 +15,7 @@ normal equations on the card (``solvers/ne_device.py``).  Steps:
 1. the instance: generation and the standard form (``generate_s``), the
    dense copy of A (``densify_s``);
 2. ``ipm_big(A, b, c, l, u, tol=1e-8)`` twice, each synced: ``first_s``
-   then ``warm_s``; a third solve under ``torch.profiler`` gives the
-   device's busy time and idle share;
+   then ``warm_s``;
 3. the baseline, once: the host sparse barrier ``solvers/ipm.py::
    ipm_solve`` on the sparse standard form at tol 1e-8 (the IPM that
    ``solve_lp(method="barrier")`` runs).  The script has no baseline; this
@@ -206,12 +205,8 @@ def run_row(cell: str, periods: int, rows: int, cols: int, seed: int,
                          "ne_stats": ne_summary(ipm_fleet.last_ne_stats),
                          "certificate": lp_certificate(A_sp, b, c, l, u,
                                                        res.x, res.y)})
-        prof = None
-        if dev.type == "cuda":
-            peak_dev = torch.cuda.max_memory_allocated(dev)
-            t0 = time.perf_counter()
-            prof = bench.device_busy(solve, dev)
-            prof["seconds"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        peak_dev = torch.cuda.max_memory_allocated(dev)
 
     launches = kernel_launch_counts()      # none: cuBLAS / cuSOLVER only
     t0 = time.perf_counter()
@@ -256,7 +251,6 @@ def run_row(cell: str, periods: int, rows: int, cols: int, seed: int,
         and (ref is None or close(warm["obj"], ref["obj"])))
     if dev.type == "cuda":
         row["peak_device_memory_bytes"] = peak_dev
-        row["warm_solve_profile"] = prof
     return row
 
 

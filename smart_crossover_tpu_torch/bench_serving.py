@@ -15,14 +15,13 @@ benchmark's constants (reg 0.005, 1000 Sinkhorn iterations, at most
 
 Protocol: one warm-up dispatch that ends in a host fetch; then one wall
 clock across all dispatches, each fetching its basis to host numpy (a
-server consumes it there) under a per-dispatch clock; then the host
-certifies every basis in f64 (``network_methods/certify.py``).  Headline:
-``sustained_certified_exact_serving`` = B * K / (device wall + certify
-wall), instances/s.  Correct when every instance is certified, optimal on
-the device, and its device objective within ``bench.OBJ_RTOL`` of the
-certified one.  Beside it: per-dispatch latency, launches per dispatch,
-one staged pass (``bench.stage_split``) on the first batch with its
-device idle share, peak device memory, and the CPU reference pipeline
+server consumes it there) under a per-dispatch clock; then every basis
+is certified in f64 on the row's device (``network_methods/certify.py``).
+Headline: ``sustained_certified_exact_serving`` = B * K / (device wall +
+certify wall), instances/s.  Correct when every instance is certified,
+optimal on the device, and its device objective within ``bench.OBJ_RTOL``
+of the certified one.  Beside it: per-dispatch latency, launches per
+dispatch, peak device memory, and the CPU reference pipeline
 (``bench.cpu_reference_pipeline``) on two instances as the baseline.
 ``--device cpu`` runs the plain versions at 4 x 16^2 x 3 dispatches: a
 check of the command, not a measurement.
@@ -45,8 +44,8 @@ CPU_SHAPE = (4, 16, 16, 0, 3, 2)
 
 def run_row(cell: str, B: int, S: int, D: int, seed: int, n_dispatch: int,
             n_base: int, dev: torch.device) -> dict:
-    """The serving row: warm-up, the timed dispatches, certification,
-    the baseline and the staged pass.  Returns its record."""
+    """The serving row: warm-up, the timed dispatches, certification
+    and the baseline.  Returns its record."""
     from smart_crossover_tpu_torch._build import (
         kernel_launch_counts,
         reset_kernel_launch_counts,
@@ -107,8 +106,6 @@ def run_row(cell: str, B: int, S: int, D: int, seed: int, n_dispatch: int,
                                      sinkhorn_iters=bench.SINKHORN_ITERS)
     cpu_dt = (time.perf_counter() - t0) / n_base
 
-    s, d, M = (a.astype(np.float32) for a in batches[0])
-    stage_ms, _, _ = bench.stage_split(s, d, M, device=dev)
     lat_ms = [t * 1e3 for t in lat]
     row = {
         "cell": cell, "seed": seed, "batch": B, "S": S, "D": D,
@@ -139,25 +136,19 @@ def run_row(cell: str, B: int, S: int, D: int, seed: int, n_dispatch: int,
         "launches": launches,
         "launches_per_dispatch": {k: v / n_dispatch
                                   for k, v in launches.items()},
-        "stage_ms": stage_ms,
     }
     row["correct"] = (row["all_certified"] and row["all_optimal_device"]
                       and obj_rel <= bench.OBJ_RTOL)
     if dev.type == "cuda":
         row["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated(
             dev)
-        row["staged_pass_profile"] = bench.staged_pass_profile(s, d, M,
-                                                               dev)
     return row
 
 
 def records(row: dict) -> list:
     """The lines printed before the result."""
     return [{"serving": row["cell"], "dispatch_ms": row["dispatch_ms"],
-             "launches_per_dispatch": row["launches_per_dispatch"]},
-            {"staged_pass": row["cell"], "stage_ms": row["stage_ms"],
-             "median_pivots": row["median_pivots"],
-             "median_push_iters": row["median_push_iters"]}]
+             "launches_per_dispatch": row["launches_per_dispatch"]}]
 
 
 def result(row: dict, detail: dict) -> dict:

@@ -134,7 +134,7 @@ def _network_crossover(x, ot, mcf, method, solver, solver_settings, device,
             manager.update_subproblem()
             manager.set_initial_basis()
 
-    trace.count("push.iters", push_iter, stats, "push_iters")
+    stats["push_iters"] = push_iter
     timer.stop()
     with trace.span("scx.cg", stats=stats, key="cg_s"):
         cg_output = column_generation(manager, queue, solver,

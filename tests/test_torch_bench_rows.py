@@ -129,8 +129,7 @@ def test_cpu_serving_row_certifies_with_jax_objectives():
                                 dev=torch.device("cpu"))
     assert row["correct"] and row["n_certified"] == B * K
     assert row["all_optimal_device"] and row["engine"] == "mega"
-    assert len(row["dispatch_ms"]) == K and tuple(row["stage_ms"]) == \
-        bench.STAGES
+    assert len(row["dispatch_ms"]) == K
     jobj = []
     for k in range(K):
         s, d, M = bench.make_batch(B, S, D, 7 + k)
