@@ -25,7 +25,8 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           the f64 certifier on the card (the route's masks where they lie,
           one certify launch and no other kernel, counter certify.device =
           the batch), both kernels launched, certified instances/s; the
-          push kernel launched once a call;
+          push kernel launched once a call, the tree walk kernel twice
+          (the tree solve and K2 set-up's parent vector);
   push    the push kernel against its plain version, the host-driven
           loop, on the inputs the main path gives it: the push of a
           batched_tnet_exact_device call on 16 DOTmark-like 32 x 32
@@ -43,7 +44,13 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           (verdicts, reasons, objectives, vertices, feasibility errors,
           smallest flows and reduced costs, at the CPU tests' tolerances),
           also under costs lowered off the trees, where some verdicts must
-          fail; max_abs_err is the largest gap between the two;
+          fail; max_abs_err is the largest gap between the two; then the
+          tree walk kernel on the same bases with the route's float32
+          masses against the plain loops on the card: parent vectors
+          equal, flows within the card test's float32 limit, one launch a
+          call, the kernel's ms alone (CUDA events around the launch), the
+          whole call's, the plain loops' and the bound (the mask's bytes
+          at the HBM rate);
   bench   `python -m smart_crossover_tpu_torch bench` in a subprocess at
           full size (both rows): rc 0, every instance certified and
           optimal on the card, K1, K2 and the push kernel launched once
@@ -66,8 +73,9 @@ Phases, one JSON line each, any failure fatal (non-zero exit):
           sinkhorn(ot) through K1 (one launch, B = 1, against its plain
           version on the card), then network_crossover with TNET and
           CNET_OT, each OPTIMAL and equal to main_16x784x784's certified
-          objective to 1e-9; TNET's basis certified and its push one
-          launch of the push kernel;
+          objective to 1e-9; TNET's basis certified, its push one
+          launch of the push kernel and its tree solve one of the tree
+          walk kernel;
   network_crossover_goto128
           CNET_MCF on a degree-regular GOTO-like MCF (128^2 nodes, 98,304
           arcs) from HiGHS's optimum plus noise, equal to HiGHS to 1e-9,
@@ -209,7 +217,9 @@ dispatch, K1 in the drivers' `total` mode on its OT pair and in the
 walkthrough's two demos, K3-K5 on both GOTO-17 rows and the drivers'
 GOTO-128 `total` run, each kernel on the staircase row, in the soak and
 in the device-simplex bench; the push kernel, last, with its ms on the
-push phase's inputs and its launches on both main rows and in TNET)
+push phase's inputs and its launches on both main rows and in TNET; the
+certificate and tree walk kernels, with their certify phase's ms and
+their launches on both main rows, the walk's in TNET too)
 and, last,
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.  It imports nothing of JAX.
@@ -293,6 +303,23 @@ def sync_time(fn, reps: int):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return out, float(np.median(times)), times
+
+
+def event_ms(fn, reps: int) -> float:
+    """Median ms of fn() over reps by CUDA events recorded around it on
+    the current stream: the device time of what fn issues, no host sync
+    inside."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 def bound(ops: float, nbytes: float, exps: float = 0.0):
@@ -588,6 +615,9 @@ def phase_main(scx, B, S, D, seed, reps):
             f"a kernel was not launched on the OT path: {counts}")
     require(counts["tree_push"] == 1,
             f"the push kernel ran {counts['tree_push']} times in one call")
+    require(counts["tree_walk"] == 2,
+            f"the tree walk kernel ran {counts['tree_walk']} times in one "
+            f"call (the tree solve and K2 set-up's parent vector)")
     require(k2_cluster > 1, f"K2 ran {k2_cluster} block per instance")
     return counts, cobj, rec["certified_instances_per_s"]
 
@@ -898,10 +928,78 @@ def certify_at(scx, label, Bm, s, d, M, reps):
     return rec
 
 
+def walk_work(B, S, D, flows):
+    """(operations, bytes) of one tree walk launch: the mask read once,
+    and the masses read and the S + D - 1 arcs' flows written, or the
+    parent vector written; the per-instance status besides."""
+    V = S + D
+    out = 4.0 * B * (V + V - 1) if flows else 8.0 * B * V
+    return 0.0, float(B * S * D) + out + 8.0 * B
+
+
+def walk_at(label, Bm, s, d, reps):
+    """The tree walk kernel on one batch of the route's bases Bm with the
+    route's float32 masses, against the plain loops on the card: the parent
+    vectors equal; the flows on the tree's arcs, zero wherever the float64
+    plain loop's are, and within the card test's float32 limit
+    (tests/test_torch_kernels_cuda.py::test_tree_walk_matches_plain); one
+    launch a call.  The kernel's ms alone (CUDA events around the launch),
+    the whole call's (buffers, the status read) and the plain loops'."""
+    import torch
+
+    from smart_crossover_tpu_torch import _build
+    from smart_crossover_tpu_torch.ops import tree
+
+    Bm = Bm.to(torch.bool)
+    B, S, D = Bm.shape
+    tree.bipartite_tree_solve(Bm, s, d)           # warm-up
+    n0 = _build.LAUNCHES["tree_walk"]
+    X, call_ms, _ = sync_time(lambda: tree.bipartite_tree_solve(Bm, s, d),
+                              reps)
+    parent, parent_call_ms, _ = sync_time(
+        lambda: tree.build_parent_from_mask(Bm), reps)
+    launches = (_build.LAUNCHES["tree_walk"] - n0) / (2 * reps)
+    ms = event_ms(tree.walk_launcher(Bm, s, d)[0], reps)
+    parent_ms = event_ms(tree.walk_launcher(Bm)[0], reps)
+    Xp, plain_ms, _ = sync_time(
+        lambda: tree.bipartite_tree_solve_plain(Bm, s, d), 2)
+    parent_p, parent_plain_ms, _ = sync_time(
+        lambda: tree.build_parent_from_mask_plain(Bm), 2)
+    X64 = tree.bipartite_tree_solve_plain(Bm, s.double(), d.double())
+    big = X64.abs().amax((1, 2), keepdim=True)
+    gap = (s.double().sum(1) - d.double().sum(1)).abs()[:, None, None]
+    err = (X.double() - X64).abs()
+    flows_ok = (not bool(((X != 0) & ~Bm).any())
+                and not bool(((X != 0) & (X64 == 0)).any())
+                and bool((err <= 2.0**-23 * X64.abs() + gap
+                          + 2.0**-40 * big).all())
+                and bool(((X - Xp).double().abs()
+                          <= 16 * 2.0**-23 * big + gap).all()))
+    same = bool(torch.equal(parent, parent_p))
+    b_ms, b_by = bound(*walk_work(B, S, D, True))
+    rec = {"input": label, "shape": [B, S, D], "dtype": str(X.dtype),
+           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "parent_ms": parent_ms, "parent_call_ms": parent_call_ms,
+           "parent_plain_ms": parent_plain_ms,
+           "parent_bound_ms": bound(*walk_work(B, S, D, False))[0],
+           "launches_per_call": launches, "parents_equal": same,
+           "flows_within_limit": flows_ok,
+           "max_abs_err_to_f64": float(err.max()),
+           "zero_flows": int(((X64 == 0) & Bm).sum())}
+    require(same, f"tree walk {label}: the parent vector differs from the "
+                  f"plain BFS")
+    require(flows_ok, f"tree walk {label}: the flows are off the plain "
+                      f"loop's (max |err| {rec['max_abs_err_to_f64']})")
+    require(launches == 1, f"tree walk {label}: {launches} launches a call")
+    return rec
+
+
 def phase_certify(scx):
     """The certificate kernel on the route's optimal bases at the two batch
-    cells' shapes.  Returns the kernel's summary entry (the DOTmark-like
-    batch; the grid's beside it)."""
+    cells' shapes, and the tree walk kernel on the same bases with the
+    route's float32 masses.  Returns the two kernels' summary entries (the
+    DOTmark-like batch; the grid's beside it)."""
     from smart_crossover_tpu_torch.data.ot_gen import (
         grid_l1_cost,
         synthetic_digits,
@@ -921,7 +1019,7 @@ def phase_certify(scx):
     G = grid_l1_cost((28, 28), idx, (28, 28), idx).astype(np.float32)
     grid = (imgs[0::2].copy(), imgs[1::2].copy(),
             np.broadcast_to(G, (16,) + G.shape).copy())
-    rows = []
+    rows, walks = [], []
     for label, (s, d, M) in (("dotmark_16x1024x1024", dot),
                              ("digits_grid_16x784x784", grid)):
         out = scx.batched_tnet_exact_device(
@@ -929,7 +1027,8 @@ def phase_certify(scx):
             max_pivots=MAX_PIVOTS)
         require(bool(out[4].all()), f"certify {label}: route not optimal")
         rows.append(certify_at(scx, label, out[5].cpu().numpy(), s, d, M, 10))
-    emit({"phase": "certify", "inputs": rows})
+        walks.append(walk_at(label, out[5], *to_cuda(s, d), 20))
+    emit({"phase": "certify", "inputs": rows, "tree_walk": walks})
     big, grid_row = rows
     entry = {"name": "certify", "route": "cuda", "source": "csrc/certify.cu",
              "replaces": "none: the JAX package certifies on the host in "
@@ -943,7 +1042,19 @@ def phase_certify(scx):
              "bound_by": big["bound_by"], "library_ms": None}
     for key in ("ms", "call_ms", "upload_ms", "plain_ms", "bound_ms"):
         entry[f"{key}_784"] = grid_row["kernel_ms" if key == "ms" else key]
-    return entry
+    walk = {"name": "tree_walk", "route": "cuda",
+            "source": "csrc/tree_walk.cu",
+            "replaces": "none: the JAX package's lax.while_loops; the "
+                        "port's host-driven loops",
+            "max_abs_err": max(w["max_abs_err_to_f64"] for w in walks),
+            "library_ms": None}
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+            "parent_ms", "parent_call_ms", "parent_plain_ms",
+            "parent_bound_ms")
+    for key in keys:
+        walk[key] = walks[0][key]
+        walk[f"{key}_784"] = walks[1][key]
+    return entry, walk
 
 
 # ------------------------------------------------------ network crossover
@@ -1025,13 +1136,18 @@ def phase_network_crossover(scx, cert_obj):
             rec[method].update(basis_certified=c.ok,
                                basis_max_feas_err=c.max_feas_err,
                                basis_min_reduced_cost=c.min_rcost,
-                               push_launches=launches["tree_push"])
+                               push_launches=launches["tree_push"],
+                               walk_launches=launches["tree_walk"])
             require(c.ok, f"TNET basis not certified: {c.reason}")
             require(launches["tree_push"] == 1,
                     f"TNET ran the push kernel {launches['tree_push']} "
                     f"times")
+            require(launches["tree_walk"] == 1,
+                    f"TNET ran the tree walk kernel "
+                    f"{launches['tree_walk']} times")
     emit(rec)
     counts["tree_push"] = rec["tnet"]["push_launches"]
+    counts["tree_walk"] = rec["tnet"]["walk_launches"]
     return counts, k1_ms, plain_ms
 
 
@@ -2898,8 +3014,10 @@ def main() -> int:
     counts7, cobj7, ips7 = phase_main(scx, 16, 784, 784, seed=1, reps=3)
     push = phase_push(scx)
     push.update(launches=counts["tree_push"], launches_784=counts7["tree_push"])
-    certify = phase_certify(scx)
+    certify, walk = phase_certify(scx)
     certify.update(launches=counts["certify"], launches_784=counts7["certify"])
+    walk.update(launches=counts["tree_walk"],
+                launches_784=counts7["tree_walk"])
     named = phase_bench(torch, {"ot_64x256x256": ips,
                                 "ot_16x784x784": ips7})
     serve_row = named["serve_16x128x128x16"]
@@ -2911,6 +3029,7 @@ def main() -> int:
             serve_row["launches_per_dispatch"][k["name"]]
     nc_counts, k1_b1_ms, k1_b1_plain = phase_network_crossover(scx, cobj7[0])
     push["launches_network_crossover_tnet"] = nc_counts["tree_push"]
+    walk["launches_network_crossover_tnet"] = nc_counts["tree_walk"]
     goto_fo, goto_warm, goto_x = phase_goto(scx)
     goto17 = phase_goto17(scx, goto_row)
     exact = phase_tnet_exact(scx, cobj)
@@ -2994,7 +3113,7 @@ def main() -> int:
            or m.split(".")[0] == "smart_crossover_tpu"]
     require(not bad, f"JAX modules were imported: {bad[:5]}")
     print(smi, flush=True)
-    emit({"kernels": kernels + [push, certify]})
+    emit({"kernels": kernels + [push, certify, walk]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

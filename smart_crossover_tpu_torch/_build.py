@@ -27,7 +27,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent
 CSRC = PACKAGE / "csrc"
 SOURCES = ("sinkhorn.cu", "transport_simplex_mega.cu", "pdhg_cluster.cu",
-           "tree_push.cu", "certify.cu")
+           "tree_push.cu", "certify.cu", "tree_walk.cu")
 
 
 def _writable(path: Path) -> bool:
@@ -58,7 +58,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"sinkhorn_fused": 0, "transport_simplex_mega": 0,
             "pdhg_chunk": 0, "halpern_chunk": 0, "pdhg_batched": 0,
-            "tree_push": 0, "certify": 0}
+            "tree_push": 0, "certify": 0, "tree_walk": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -107,6 +107,11 @@ _SIGNATURES = {
     # S, D, f64 -> bytes of global scratch a block needs (0: shared memory
     # holds its arrays; or -error)
     "scx_certify_scratch_bytes": [_I] * 3,
+    # mask, stride, s, d, scratch, B, S, D, f64, parent, X, info, stream
+    "scx_tree_walk": [_P, ctypes.c_longlong] + [_P] * 3 + [_I] * 4 + [_P] * 4,
+    # S, D, f64 -> bytes of global scratch a block needs (0: shared memory
+    # holds its arrays; or -error)
+    "scx_tree_walk_scratch_bytes": [_I] * 3,
 }
 
 _lib = None

@@ -44,10 +44,8 @@ from smart_crossover_tpu_torch.ops.transport_simplex_anc import (
     build_ancestor_matrix,
     rebuild_plan,
 )
-from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
-    _price,
-    build_parent_from_mask,
-)
+from smart_crossover_tpu_torch.ops.transport_simplex_parent import _price
+from smart_crossover_tpu_torch.ops.tree import build_parent_from_mask
 from smart_crossover_tpu_torch.utils import trace
 
 _STATIC_SMEM = 1024      # the kernel's static shared memory, at most

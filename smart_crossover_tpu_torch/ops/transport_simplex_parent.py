@@ -2,8 +2,9 @@
 device pivot engine shares.
 
 Port of ``smart_crossover_tpu/ops/transport_simplex_parent.py``
-(``build_parent_from_mask``, ``_chain``, ``_root_paths2``,
-``transport_simplex_parent`` and its batched form).  The basis tree is a
+(``_chain``, ``_root_paths2``, ``transport_simplex_parent`` and its
+batched form; its ``build_parent_from_mask`` is in ``ops/tree.py``, one
+launch of the tree walk kernel on a card).  The basis tree is a
 ``parent`` vector over the V = S + D nodes (rows 0..S-1, columns S..V-1)
 and every per-pivot step is O(V log V) work by binary lifting.  The TPU
 expressed each lifting round as a one-hot matmul over float node ids under
@@ -25,6 +26,13 @@ import math
 
 import torch
 
+# the parent vector lives beside its kernel in ops/tree.py; its names stay
+# importable here for this engine, the anc engine and the tests
+from smart_crossover_tpu_torch.ops.tree import (  # noqa: F401
+    build_parent_from_mask,
+    build_parent_from_mask_plain,
+)
+
 # pivot steps between two host reads of "any instance still pivoting"; a
 # finished instance's steps in between are masked no-ops
 PIVOT_CHECK_EVERY = 16
@@ -35,39 +43,6 @@ def _num_levels(V: int) -> int:
     while (1 << K) < V:
         K += 1
     return K
-
-
-def build_parent_from_mask(Bm, max_rounds: int | None = None):
-    """Root each basis tree Bm (B, S, D) at node 0 (row 0).
-
-    Nodes 0..S-1 are rows, S..S+D-1 columns.  Breadth-first masked
-    propagation, O(diameter) rounds.  Returns parent (B, V) int64 with
-    parent[root] == root.
-    """
-    B, S, D = Bm.shape
-    V = S + D
-    if max_rounds is None:
-        max_rounds = V + 2
-    dev = Bm.device
-    parent = torch.zeros(B, V, dtype=torch.int64, device=dev)
-    arow = torch.zeros(B, S, dtype=torch.bool, device=dev)
-    arow[:, 0] = True
-    acol = torch.zeros(B, D, dtype=torch.bool, device=dev)
-    for _ in range(max_rounds):
-        if bool(arow.all()) and bool(acol.all()):
-            break
-        # in a tree, a newly reached column has exactly one assigned row
-        reach_c = Bm & arow[:, :, None] & ~acol[:, None, :]
-        hit_c = reach_c.any(1)
-        pi_c = reach_c.to(torch.uint8).argmax(1)
-        parent[:, S:] = torch.where(hit_c, pi_c, parent[:, S:])
-        acol = acol | hit_c
-        reach_r = Bm & acol[:, None, :] & ~arow[:, :, None]
-        hit_r = reach_r.any(2)
-        pj_r = reach_r.to(torch.uint8).argmax(2) + S
-        parent[:, :S] = torch.where(hit_r, pj_r, parent[:, :S])
-        arow = arow | hit_r
-    return parent
 
 
 def _tree_cells(parent, S: int, D: int):

@@ -36,7 +36,8 @@ def test_library_name_follows_each_source(src_copy, name):
 
 def test_every_kernel_has_a_source_signature_and_counter():
     assert _build.SOURCES == ("sinkhorn.cu", "transport_simplex_mega.cu",
-                              "pdhg_cluster.cu", "tree_push.cu", "certify.cu")
+                              "pdhg_cluster.cu", "tree_push.cu", "certify.cu",
+                              "tree_walk.cu")
     for name in _build.LAUNCHES:
         assert f"scx_{name}" in _build._SIGNATURES
     for src in _build.SOURCES:
@@ -63,6 +64,17 @@ def test_certify_has_its_source_signature_and_counter():
         assert name in _build._SIGNATURES
     assert len(_build._SIGNATURES["scx_certify"]) == 15
     assert "certify" in _build.LAUNCHES
+
+
+def test_tree_walk_has_its_source_signature_and_counter():
+    """The tree walk kernel's C entry points, as the wrapper binds them,
+    appear in its source, and its launches have a counter."""
+    src = (_build.CSRC / "tree_walk.cu").read_text()
+    for name in ("scx_tree_walk", "scx_tree_walk_scratch_bytes"):
+        assert f'extern "C" int {name}(' in src
+        assert name in _build._SIGNATURES
+    assert len(_build._SIGNATURES["scx_tree_walk"]) == 13
+    assert "tree_walk" in _build.LAUNCHES
 
 
 def test_existing_library_is_reused(src_copy, monkeypatch):
@@ -109,4 +121,5 @@ def test_launch_counts_reset():
     reset_kernel_launch_counts()
     assert kernel_launch_counts() == {
         "sinkhorn_fused": 0, "transport_simplex_mega": 0, "pdhg_chunk": 0,
-        "halpern_chunk": 0, "pdhg_batched": 0, "tree_push": 0, "certify": 0}
+        "halpern_chunk": 0, "pdhg_batched": 0, "tree_push": 0, "certify": 0,
+        "tree_walk": 0}

@@ -29,11 +29,19 @@ from smart_crossover_tpu_torch.network_methods.certify import (
 )
 from smart_crossover_tpu_torch.parallel.batched import (
     batched_tnet,
+    batched_tnet_exact,
     batched_tnet_exact_device,
 )
 from smart_crossover_tpu_torch.network_methods import tree_bi
 from smart_crossover_tpu_torch.ops import certify as certify_kernel
-from smart_crossover_tpu_torch.ops.tree import push_to_bfs, push_to_bfs_plain
+from smart_crossover_tpu_torch.ops.tree import (
+    bipartite_tree_solve,
+    bipartite_tree_solve_plain,
+    build_parent_from_mask,
+    build_parent_from_mask_plain,
+    push_to_bfs,
+    push_to_bfs_plain,
+)
 from smart_crossover_tpu_torch.utils import trace
 from tests import certify_cases as cc
 from tests import push_cases
@@ -908,6 +916,306 @@ def test_exact_route_is_unchanged_by_the_push_kernel(cuda, monkeypatch):
         assert torch.equal(a, b)
     assert bool(kernel[4].all())
 
+
+
+def _boruvka_tree(s, d, seed, live=False):
+    """Borůvka's tree of random weights on the card (the strided view the
+    route hands on), with the route's masses; ``live`` weights the arcs
+    between nonzero masses up, as the route does."""
+    B, S = s.shape
+    D = d.shape[1]
+    rng = np.random.default_rng(seed)
+    W = torch.tensor(rng.uniform(0.0, 1.0, (B, S, D)), dtype=torch.float32,
+                     device="cuda")
+    if live:
+        W += torch.tensor((s > 0)[:, :, None] & (d > 0)[:, None, :],
+                          device="cuda")
+    return boruvka_bipartite_mst(W), s, d
+
+
+def _mask_case(trees, seed):
+    """Numpy masks (B, S, D) on the card, with random masses."""
+    m = np.asarray(trees)
+    s, d, _ = _batch(*m.shape, seed=seed)
+    return torch.from_numpy(m).to("cuda"), s, d
+
+
+def _path(S):
+    """The path row 0, column 0, row 1, column 1, ...: depth 2 S - 1."""
+    m = np.zeros((1, S, S), bool)
+    i = np.arange(S)
+    m[0, i, i] = True
+    m[0, i[1:], i[:-1]] = True
+    return m
+
+
+def _star(S, D):
+    m = np.zeros((1, S, D), bool)
+    m[0, 0, :] = True
+    m[0, :, 0] = True
+    return m
+
+
+def _unit_sources(B, S, D, seed):
+    """The mask engine's cycle solves, signed: +1 and -1 at two rows and
+    at two columns of random trees."""
+    mask, _, _ = _boruvka_tree(np.ones((B, S)), np.ones((B, D)), seed)
+    rng = np.random.default_rng(seed)
+    s, d = np.zeros((B, S)), np.zeros((B, D))
+    for b in range(B):
+        i = rng.choice(S, 2, replace=False)
+        j = rng.choice(D, 2, replace=False)
+        s[b, i], d[b, j] = (1.0, -1.0), (-1.0, 1.0)
+    return mask, s, d
+
+
+# the route's shapes: DOTmark-like 16 x 1024^2, the grid's 16 x 784^2 with
+# its zero masses, MNIST-pair TNET requests (B = 1); one row or column; the
+# deepest tree (a path from row 0, depth V - 1), a monotone staircase path
+# and a star (depth 2); the mask
+# engine's signed unit sources; and a tree too large for a block's shared
+# memory, whose arrays go to global scratch
+WALK_CASES = {
+    "dotmark_16x1024x1024": lambda: _boruvka_tree(
+        *dotmark(16, 32, seed=110)[:2], seed=111),
+    "grid_16x784x784": lambda: _boruvka_tree(
+        *digit_grid(16, 28, 112, 4)[:2], seed=113, live=True),
+    "pair_1x73x79": lambda: _boruvka_tree(*_batch(1, 73, 79, 114)[:2],
+                                          seed=115),
+    "pair_1x166x155": lambda: _boruvka_tree(*_batch(1, 166, 155, 116)[:2],
+                                            seed=117),
+    "rows_4x1x37": lambda: _boruvka_tree(*_batch(4, 1, 37, 118)[:2],
+                                         seed=119),
+    "cols_4x41x1": lambda: _boruvka_tree(*_batch(4, 41, 1, 120)[:2],
+                                         seed=121),
+    "path_1x300x300": lambda: _mask_case(_path(300), seed=123),
+    "staircase_1x300x280": lambda: _mask_case(
+        [cc.staircase(300, 280, np.random.default_rng(122))], seed=137),
+    "star_1x300x280": lambda: _mask_case(_star(300, 280), seed=124),
+    "unit_sources_8x64x80": lambda: _unit_sources(8, 64, 80, seed=125),
+    "scratch_1x4000x4000": lambda: _boruvka_tree(
+        *_batch(1, 4000, 4000, 126)[:2], seed=127),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_case(case):
+    return WALK_CASES[case]()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(WALK_CASES))
+def test_tree_walk_matches_plain(cuda, case, dtype):
+    """One launch of ``csrc/tree_walk.cu`` a call.  The parent vector
+    equals the plain BFS's element for element (a tree rooted at node 0 has
+    one).  The flows lie on the tree's arcs; in float64 within 1e-12 of
+    the plain loop's, the standard ``tests/test_torch_tree.py`` holds the
+    plain loop to against the JAX package.  In float32 the kernel sums each
+    subtree in float64 and rounds once, so it lies within one float32
+    rounding of the plain loop run in float64 on the same masses; the
+    float32 plain loop rounds at every leaf elimination, on partial sums
+    as large as the flows, so the two float32 versions agree within 16
+    float32 ulps of the instance's largest flow.  Masses rounded to float32
+    no longer balance: the walk leaves the gap |sum s - sum d| at its root
+    (the node of largest |mass|), the plain loop at the last node it
+    eliminates, so the flows on the path between the two differ by that
+    gap too.  Wherever the float64 plain loop's flow is exactly 0 (an arc
+    whose side away from the root holds only zero masses) the kernel's is
+    exactly 0 too."""
+    mask, s, d = _walk_case(case)
+    B, S, D = mask.shape
+    n0 = _build.kernel_launch_counts()["tree_walk"]
+    parent = build_parent_from_mask(mask)
+    assert _build.kernel_launch_counts()["tree_walk"] == n0 + 1
+    assert parent.dtype == torch.int64 and parent.shape == (B, S + D)
+    assert torch.equal(parent, build_parent_from_mask_plain(mask))
+    st, dt = (torch.tensor(a, dtype=dtype, device=cuda) for a in (s, d))
+    X = bipartite_tree_solve(mask, st, dt)
+    torch.cuda.synchronize()
+    assert _build.kernel_launch_counts()["tree_walk"] == n0 + 2
+    assert X.dtype == dtype and X.shape == (B, S, D)
+    assert not bool(((X != 0) & ~mask).any())
+    Xp = bipartite_tree_solve_plain(mask, st, dt)
+    X64 = bipartite_tree_solve_plain(mask, st.double(), dt.double())
+    assert not bool(((X != 0) & (X64 == 0)).any())
+    big = X64.abs().amax((1, 2), keepdim=True)
+    gap = (st.double().sum(1) - dt.double().sum(1)).abs()[:, None, None]
+    if dtype == torch.float64:
+        assert float((X - Xp).abs().max()) <= 1e-12
+    else:
+        assert bool(((X.double() - X64).abs()
+                     <= 2.0**-23 * X64.abs() + gap + 2.0**-40 * big).all())
+        assert bool(((X - Xp).double().abs()
+                     <= 16 * 2.0**-23 * big + gap).all())
+    per_block = _build.library().scx_tree_walk_scratch_bytes(
+        S, D, int(dtype == torch.float64))
+    assert (per_block > 0) == case.startswith("scratch")
+
+
+def _eccentricity(parent, root):
+    """Hops from ``root`` to the farthest node of the tree given by its
+    parent vector, by a breadth-first search on the host."""
+    adj = [[] for _ in parent]
+    for v, p in enumerate(parent):
+        if v != p:
+            adj[v].append(p)
+            adj[p].append(v)
+    dist = {root: 0}
+    queue = [root]
+    for v in queue:
+        for u in adj[v]:
+            if u not in dist:
+                dist[u] = dist[v] + 1
+                queue.append(u)
+    return max(dist.values())
+
+
+def test_tree_walk_repeats_bit_for_bit_and_counts(cuda):
+    """Repeat launches give the same bits; while the tracer records, the
+    open span counts the deepest instance's walk depth."""
+    mask, s, d = _walk_case("dotmark_16x1024x1024")
+    st, dt = (torch.tensor(a, dtype=torch.float32, device=cuda)
+              for a in (s, d))
+    a = bipartite_tree_solve(mask, st, dt)
+    b = bipartite_tree_solve(mask, st, dt)
+    assert torch.equal(a, b)
+    assert torch.equal(build_parent_from_mask(mask),
+                       build_parent_from_mask(mask))
+    small, s3, d3 = _boruvka_tree(*_batch(3, 137, 141, 128)[:2], seed=129)
+    with trace.recording() as rec:
+        with trace.span("scx.tree_solve", small.device):
+            bipartite_tree_solve(small, torch.tensor(s3, device=cuda),
+                                 torch.tensor(d3, device=cuda))
+        with trace.span("scx.simplex_setup", small.device):
+            parent = build_parent_from_mask(small)
+    # the parent vector's walk starts at node 0, the flows' at the first
+    # node of largest |mass|
+    parent = parent.tolist()
+    masses = np.concatenate([s3, d3], 1)
+    sm = rec.summary()
+    assert sm["scx.simplex_setup"]["counters"] == {"tree_walk.depth": max(
+        _eccentricity(p, 0) for p in parent)}
+    assert sm["scx.tree_solve"]["counters"] == {"tree_walk.depth": max(
+        _eccentricity(p, int(np.argmax(np.abs(m))))
+        for p, m in zip(parent, masses))}
+    path, _, _ = _walk_case("path_1x300x300")
+    with trace.recording() as rec:
+        with trace.span("scx.simplex_setup", path.device):
+            build_parent_from_mask(path)
+    assert rec.summary()["scx.simplex_setup"]["counters"] == {
+        "tree_walk.depth": 300 + 300 - 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16,
+                                   torch.int64])
+def test_tree_solve_refuses_other_dtypes_on_the_card(cuda, dtype):
+    """On the card the tree solve is the kernel or an error, never the
+    plain loop."""
+    mask, s, d = _walk_case("pair_1x73x79")
+    n0 = _build.kernel_launch_counts()["tree_walk"]
+    with pytest.raises(TypeError, match="float32 or float64"):
+        bipartite_tree_solve(mask, torch.tensor(s, device=cuda).to(dtype),
+                             torch.tensor(d, device=cuda).to(dtype))
+    assert _build.kernel_launch_counts()["tree_walk"] == n0
+
+
+def test_tree_walk_refuses_max_rounds_on_the_card(cuda):
+    """``max_rounds`` bounds only the plain loops: on the card, where the
+    kernel walks every tree to its end, both functions refuse it before
+    any launch rather than ignore it."""
+    mask, s, d = _walk_case("pair_1x73x79")
+    n0 = _build.kernel_launch_counts()["tree_walk"]
+    with pytest.raises(ValueError, match="max_rounds"):
+        build_parent_from_mask(mask, max_rounds=4)
+    with pytest.raises(ValueError, match="max_rounds"):
+        bipartite_tree_solve(mask, torch.tensor(s, device=cuda),
+                             torch.tensor(d, device=cuda), max_rounds=4)
+    assert _build.kernel_launch_counts()["tree_walk"] == n0
+
+
+@pytest.mark.parametrize("kind", ["wrong_counts", "cycle", "scattered"])
+def test_tree_walk_refuses_non_trees(cuda, kind):
+    """A mask without S + D - 1 arcs, or whose arcs leave a node
+    unreached from row 0, raises ``ValueError`` in both functions."""
+    S, D = 34, 26
+    if kind == "wrong_counts":
+        m, match = cc.wrong_counts(S, D, seed=130), "S \\+ D - 1 arcs"
+    elif kind == "cycle":
+        m, match = cc.cycles(S, D, seed=131), "unreached"
+    else:
+        m, match = cc.scattered(S, D, seed=132), "no spanning tree"
+    tree = cc.random_tree(S, D, np.random.default_rng(133))[None]
+    mask = torch.from_numpy(np.concatenate([tree, m])).to(cuda)
+    s, d, _ = _batch(mask.shape[0], S, D, seed=134)
+    with pytest.raises(ValueError, match=match):
+        build_parent_from_mask(mask)
+    with pytest.raises(ValueError, match=match):
+        bipartite_tree_solve(mask, torch.tensor(s, device=cuda),
+                             torch.tensor(d, device=cuda))
+
+
+def test_grid_warm_start_pushes_as_the_plain_loop(cuda, monkeypatch):
+    """16 x 784^2 digit pairs with their blank pixels kept: the route's
+    warm start (K1, ranking, Borůvka, tree solve, push) takes the plain
+    loop's push steps on the kernel's tree flows, instance for instance,
+    within 1%: the float32 flows of the two differ by a few roundings,
+    which may break a tie of the push another way (on an H100 the steps
+    were equal).  Arcs whose far side holds only zero masses carry exactly
+    0, so the push never stalls on a flow of a few roundings (rooted at
+    row 0, a blank corner pixel, the walk put the masses' float32 gap on
+    that pixel's arc, and the push ran to its 100,000-step cap)."""
+    s, d, M = (torch.tensor(a, dtype=torch.float32, device=cuda)
+               for a in digit_grid(16, 28, 138, 4))
+    kernel = batched_tnet(s, d, M, reg=0.005, sinkhorn_iters=1000)[1]
+    monkeypatch.setattr(tree_bi, "bipartite_tree_solve",
+                        bipartite_tree_solve_plain)
+    plain = batched_tnet(s, d, M, reg=0.005, sinkhorn_iters=1000)[1]
+    print("push steps, kernel", kernel.tolist(), "plain", plain.tolist())
+    assert bool(((kernel - plain).abs() <= 0.01 * plain).all())
+
+
+def test_exact_route_is_unchanged_by_the_tree_walk_kernel(cuda, monkeypatch):
+    """The exact route (``batched_tnet_exact``, engine ``mega``) with the
+    tree solve and K2's parent vector on the kernel (two launches a call)
+    and on the plain loops (none): every instance certified on both sides,
+    none repaired, and the same optimal objectives to 1e-9."""
+    s, d, M = dotmark(4, 32, seed=135)
+
+    def route():
+        n0 = _build.kernel_launch_counts()["tree_walk"]
+        stats = {}
+        out = batched_tnet_exact(s, d, M, engine="mega", device=cuda,
+                                 stats=stats)
+        return out, stats, _build.kernel_launch_counts()["tree_walk"] - n0
+
+    kernel, k_stats, n_kernel = route()
+    monkeypatch.setattr(tree_bi, "bipartite_tree_solve",
+                        bipartite_tree_solve_plain)
+    monkeypatch.setattr(tsm, "build_parent_from_mask",
+                        build_parent_from_mask_plain)
+    plain, p_stats, n_plain = route()
+    assert (n_kernel, n_plain) == (2, 0)
+    assert bool(kernel[3].all()) and bool(plain[3].all())
+    assert k_stats["repaired"] == p_stats["repaired"] == 0
+    np.testing.assert_allclose(kernel[1], plain[1], rtol=1e-9)
+
+
+def test_tnet_request_makes_one_tree_walk_launch(cuda):
+    """A TNET request on the card solves its tree flows in one launch and
+    builds no parent vector."""
+    from smart_crossover_tpu_torch import (
+        OptTransport, network_crossover, sinkhorn)
+
+    rng = np.random.default_rng(136)
+    s = rng.uniform(0.5, 2.0, 73)
+    d = rng.uniform(0.5, 2.0, 79)
+    d *= s.sum() / d.sum()
+    ot = OptTransport(s, d, rng.uniform(0.0, 5.0, (73, 79)))
+    x = sinkhorn(ot, reg=0.02, num_iters=500)
+    _build.reset_kernel_launch_counts()
+    out = network_crossover(x, ot=ot, method="tnet")
+    assert out.status == "OPTIMAL"
+    assert _build.kernel_launch_counts()["tree_walk"] == 1
 
 
 @pytest.mark.parametrize("case", ["digits_784", "digits_784_all_cells",

@@ -31,14 +31,19 @@ from smart_crossover_tpu_torch.ops.transport_simplex_anc import (
     _tree_cells,
     build_ancestor_matrix,
 )
+from smart_crossover_tpu_torch.ops import transport_simplex_parent
 from smart_crossover_tpu_torch.ops.transport_simplex_parent import (
     build_parent_from_mask,
 )
 from smart_crossover_tpu_torch import _build
+from smart_crossover_tpu_torch.ops import tree
 from smart_crossover_tpu_torch.ops.tree import (
     bipartite_tree_solve,
+    bipartite_tree_solve_plain,
+    build_parent_from_mask_plain,
     push_to_bfs,
     push_to_bfs_plain,
+    tree_walk,
 )
 from tests import push_cases
 
@@ -161,6 +166,76 @@ def test_push_runs_the_plain_loop_on_the_cpu(dtype, monkeypatch):
     assert torch.equal(Xp, Xq) and torch.equal(iters, jters)
     assert int(iters.max()) > 0 and (Xp >= 0).all()
     assert _build.LAUNCHES["tree_push"] == n0
+
+
+def _no_library(monkeypatch):
+    def no_library():
+        raise AssertionError("the CPU path must not load the kernels")
+
+    monkeypatch.setattr(_build, "library", no_library)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tree_solve_runs_the_plain_loop_on_the_cpu(dtype, monkeypatch):
+    """A CPU tensor never reaches the tree walk kernel: the plain loop's
+    flows, no launch counted."""
+    _no_library(monkeypatch)
+    rng, s, d = _batch(2, 13, 29, seed=17)
+    masks = torch.from_numpy(_jmasks(_weights(rng, 2, 13, 29, "continuous")))
+    ts, td = torch.from_numpy(s).to(dtype), torch.from_numpy(d).to(dtype)
+    n0 = _build.LAUNCHES["tree_walk"]
+    X = bipartite_tree_solve(masks, ts, td)
+    assert X.dtype == dtype
+    assert torch.equal(X, bipartite_tree_solve_plain(masks, ts, td))
+    assert _build.LAUNCHES["tree_walk"] == n0
+
+
+@pytest.mark.parametrize("kind", ["continuous", "support"])
+def test_parent_runs_the_plain_bfs_on_the_cpu(kind, monkeypatch):
+    """The parent vector on a CPU tensor, through either module's name:
+    the plain BFS, no launch counted."""
+    _no_library(monkeypatch)
+    rng, _, _ = _batch(3, 24, 40, seed=18)
+    masks = torch.from_numpy(_jmasks(_weights(rng, 3, 24, 40, kind)))
+    n0 = _build.LAUNCHES["tree_walk"]
+    ref = build_parent_from_mask_plain(masks)
+    assert torch.equal(build_parent_from_mask(masks), ref)
+    assert torch.equal(tree.build_parent_from_mask(masks), ref)
+    assert _build.LAUNCHES["tree_walk"] == n0
+
+
+def test_max_rounds_bounds_the_plain_loops_on_the_cpu(monkeypatch):
+    """On a CPU tensor ``max_rounds`` reaches the plain loops: one round
+    leaves a deep tree unfinished, enough rounds give the default's
+    result."""
+    _no_library(monkeypatch)
+    rng, s, d = _batch(2, 13, 29, seed=20)
+    masks = torch.from_numpy(_jmasks(_weights(rng, 2, 13, 29, "continuous")))
+    ts, td = torch.from_numpy(s), torch.from_numpy(d)
+    X = bipartite_tree_solve(masks, ts, td)
+    parent = build_parent_from_mask(masks)
+    assert torch.equal(bipartite_tree_solve(masks, ts, td, 13 + 29 + 2), X)
+    assert torch.equal(build_parent_from_mask(masks, 13 + 29 + 2), parent)
+    assert not torch.equal(bipartite_tree_solve(masks, ts, td, 1), X)
+    assert not torch.equal(build_parent_from_mask(masks, 1), parent)
+
+
+def test_parent_engine_module_keeps_the_names():
+    """The parent vector lives in ``ops/tree.py``; the parent engine's
+    module still names the same functions for its callers."""
+    assert (transport_simplex_parent.build_parent_from_mask
+            is tree.build_parent_from_mask)
+    assert (transport_simplex_parent.build_parent_from_mask_plain
+            is tree.build_parent_from_mask_plain)
+
+
+def test_tree_walk_takes_only_card_tensors(monkeypatch):
+    """The kernel launcher refuses a CPU tensor before it loads anything."""
+    _no_library(monkeypatch)
+    masks = torch.from_numpy(_jmasks(_weights(*_batch(1, 5, 7, 19)[:1],
+                                              1, 5, 7, "continuous")))
+    with pytest.raises(ValueError, match="no kernel for cpu"):
+        tree_walk(masks)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
